@@ -11,17 +11,27 @@ Phases, each printing its results on lines of its own:
   1. require a CUDA device; print the card (nvidia-smi name and power
      limit) and the torch / CUDA versions;
   2. build the kernels from ``harkdb_tpu_torch/csrc`` with nvcc for sm_90a
-     and print the build time and ``-Xptxas -v`` report;
+     (one nvcc per source, all started together) and print the build time
+     and ``-Xptxas -v`` report;
   3. hold each kernel against its plain PyTorch version on the card, on
-     edge cases and at the main path's shapes (kernel A: 16,777,216 rows x
-     2 int32 columns; kernel B: the group-by's 8,388,608-row max scan);
+     edge cases and at the main paths' shapes (kernel A: 16,777,216 rows x
+     2 int32 columns; kernel B: the group-by's 8,388,608-row max scan;
+     kernel D: the star join's 8.4M unit segments into 2^23 slots and
+     Q3's segments of about 4; kernel C: 2^23 rows at span 4096, span
+     16384 with three sum columns, and span 1), all bit-exact;
   4. run the main query through ``Context(device="cuda").sql`` on a
      2^24-row table and check it row for row against an independent numpy
      oracle, with every kernel launch counted;
   5. the same at 100,000,000 rows with a HAVING clause;
-  6. time phases 4 and 5 end to end (warm-up, then the median of 5), break
-     one main query down by device kernel with torch.profiler, and time
-     each kernel against its plain version with CUDA events.
+  6. the star join (2^24 facts joined to 2^20 dims, dense GROUP BY over
+     span 4096) and TPC-H Q3's shape at scale factor 1 row counts (a 3-way
+     join, then a sort-path GROUP BY and a top 10), each against a numpy
+     oracle with its kernel launches counted;
+  7. time phases 4-6 end to end (warm-up, then the median of 5), break the
+     main query and the star join down by device kernel with
+     torch.profiler, time each kernel against its plain version with CUDA
+     events, and time kernel C against the sort path's group-by at spans
+     1024, 4096 and 16384 on 2^24 rows.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -47,9 +57,22 @@ MAIN_QUERY = ("select k, sum(v) as s, max(v) as m, count(*) as c from t "
 HAVING_QUERY = ("select k, sum(v) as s, max(v) as m, count(*) as c from t "
                 "where v > 0 group by k having count(*) >= 48 "
                 "order by s desc")
+STAR_QUERY = ("select g, sum(v) as s, count(*) as c from facts join dims "
+              "on facts.k = dims.j where v > 0 group by g order by g")
+Q3_QUERY = (
+    "select orders.orderkey, sum(lineitem.price * lineitem.qty) as rev "
+    "from customer join orders on customer.custkey = orders.custkey "
+    "join lineitem on orders.orderkey = lineitem.orderkey "
+    "where customer.nation < 10 and orders.odate < 180 "
+    "group by orders.orderkey order by rev desc, orders.orderkey "
+    "limit 10"
+)
 N_MAIN = 1 << 24
 N_LARGE = 100_000_000
 N_KEYS = 1 << 20
+DIM_SPAN = 4096               # dims.g in [0, 4096): the dense GROUP BY span
+# TPC-H row counts at scale factor 1.
+N_LINEITEM, N_ORDERS, N_CUSTOMER = 6_001_215, 1_500_000, 150_000
 # Float add combines in another order on the kernel than in the plain
 # doubling scan; both are within float32 rounding of the exact sum, so the
 # difference is bounded relative to the scan of |x| over the segment.
@@ -258,6 +281,277 @@ def main_shapes(torch, dev):
     return (k, v, mask), (sid.contiguous(), vals)
 
 
+# -- phase 3, kernels C and D ------------------------------------------------
+
+def check_expand(torch, expand, dev, offsets, n_src, out_cap, extras) -> int:
+    """Kernel D against its plain version on every slot (both give the
+    same values past the live region too); returns the max abs error."""
+    offs = torch.from_numpy(np.ascontiguousarray(offsets, np.int32)).to(dev)
+    ex = [torch.from_numpy(np.ascontiguousarray(e, np.int32)).to(dev)
+          for e in extras]
+    nv = torch.full((), n_src, dtype=torch.int32, device=dev)
+    got = expand.expand_fills(offs, nv, out_cap, ex)
+    ref = expand.expand_fills_reference(offs, nv, out_cap, ex)
+    torch.cuda.synchronize()
+    err = 0
+    for g, r in zip([got[0], got[1], *got[2]], [ref[0], ref[1], *ref[2]]):
+        if g.shape != r.shape or g.dtype != torch.int32:
+            raise AssertionError("expand output shape or dtype differs")
+        err = max(err, int((g.to(torch.int64) - r.to(torch.int64))
+                           .abs().max()))
+    if err:
+        raise AssertionError(f"kernel D differs from its plain version "
+                             f"(n_src={n_src}, out_capacity={out_cap})")
+    return err
+
+
+def check_dense(torch, agg, dev, key, cols, n_valid, key_min, span,
+                mask=None) -> int:
+    """Kernel C against its plain version; returns the max abs error."""
+    k = torch.from_numpy(np.ascontiguousarray(key, np.int32)).to(dev)
+    vs = [torch.from_numpy(np.ascontiguousarray(c, np.int32)).to(dev)
+          for c in cols]
+    m = None if mask is None else torch.from_numpy(mask).to(dev)
+    nv = torch.full((), n_valid, dtype=torch.int32, device=dev)
+    got = agg.onehot_groupby_sums(k, vs, nv, key_min, span, mask=m)
+    ref = agg.onehot_groupby_sums_reference(k, vs, nv, key_min, span, mask=m)
+    torch.cuda.synchronize()
+    err = 0
+    for g, r in zip([got[0], *got[1], got[2]], [ref[0], *ref[1], ref[2]]):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError("dense aggregation shape or dtype differs")
+        err = max(err, int((g.to(torch.int64) - r.to(torch.int64))
+                           .abs().max()))
+    if err:
+        raise AssertionError(f"kernel C differs from its plain version "
+                             f"(n={key.shape[0]}, span={span}, "
+                             f"{len(cols)} sum columns)")
+    return err
+
+
+def _segments(sizes: np.ndarray):
+    offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+    return offsets, (offsets + sizes).astype(np.int32)
+
+
+def phase_kernels_cd(torch, expand, agg, dev) -> None:
+    """Kernels D and C on the CPU tests' cases (tests/test_torch_kernels.py,
+    after the JAX package's tests/test_kernels.py)."""
+    rng = np.random.default_rng(2)
+    block = 16384                       # the TPU kernel's slot block
+    out_cap = 3 * block + 1000
+    cases = 0
+    for sizes in (rng.integers(1, 9, 9000), np.ones(out_cap - 5),
+                  np.array([out_cap + 7]), np.full(6, block)):
+        offsets, ends = _segments(sizes.astype(np.int32))
+        check_expand(torch, expand, dev, offsets, len(sizes), out_cap, [ends])
+        cases += 1
+    sizes = rng.integers(1, 30, 500).astype(np.int32)
+    offsets, _ends = _segments(sizes)
+    padded = np.concatenate([offsets, np.zeros(2048, np.int32)])
+    check_expand(torch, expand, dev, padded, 300,
+                 int(offsets[299] + sizes[299]) + 77, [])
+    check_expand(torch, expand, dev, padded, 0, 128, [padded])   # no source
+    cases += 2
+    for _trial in range(8):
+        n_seg = int(rng.integers(1, 200))
+        sizes = rng.integers(1, 400, n_seg).astype(np.int32)
+        offsets, _ends = _segments(sizes)
+        mono = np.minimum(offsets // 2, 1 << 20).astype(np.int32)
+        check_expand(torch, expand, dev, offsets, n_seg,
+                     int(sizes.sum()) + int(rng.integers(0, 300)), [mono])
+        cases += 1
+    log(f"kernel D edge cases: {cases} passed (bit-exact on every slot)")
+
+    cases = 0
+    n = 6000
+    check_dense(torch, agg, dev, rng.integers(10, 200, n),
+                [rng.integers(-10**6, 10**6, n)], n, 10, 191)
+    n = 3000
+    check_dense(torch, agg, dev, rng.integers(0, 50, n), [np.ones(n)], 2000,
+                0, 50, mask=rng.random(n) < 0.5)
+    check_dense(torch, agg, dev, np.zeros(4), [np.full(4, 1 << 30)], 4, 0, 1)
+    check_dense(torch, agg, dev, rng.integers(0, 3, n),
+                [rng.integers(-99, 99, n)], n, 1, 1)
+    check_dense(torch, agg, dev, rng.integers(-40, 40, n),
+                [rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64),
+                 rng.integers(0, 9, n)], n - 1, -30, 1024,
+                mask=rng.random(n) < 0.7)
+    check_dense(torch, agg, dev, rng.integers(0, 50, n), [], n, 0, 64)
+    cases += 6
+    log(f"kernel C edge cases: {cases} passed (bit-exact counts, sums and "
+        f"keys)")
+
+
+def cd_shapes(torch, dev):
+    """Kernel C and D inputs at the slice's shapes, on the card:
+    ``(d_star, d_q3, c_main)`` as argument tuples for the wrappers."""
+    rng = np.random.default_rng(3)
+    k_np, v_np = table_data(N_MAIN)
+    n_src = int((v_np > 0).sum())              # the star join's left rows
+    offs = torch.arange(N_MAIN, dtype=torch.int32, device=dev)
+    lo = torch.from_numpy(np.sort(rng.integers(0, N_KEYS, N_MAIN)).astype(
+        np.int32)).to(dev)
+    d_star = (offs, torch.full((), n_src, dtype=torch.int32, device=dev),
+              1 << 23, [lo, lo + 1])
+    sizes = rng.integers(1, 8, 1 << 18).astype(np.int32)   # ~4 per order
+    offsets, _ends = _segments(sizes)
+    cap = 1 << 19
+    pad = np.zeros(cap - sizes.shape[0], np.int32)
+    q3_offs = torch.from_numpy(np.concatenate([offsets, pad])).to(dev)
+    q3_lo = torch.from_numpy(np.concatenate([offsets * 2, pad])).to(dev)
+    d_q3 = (q3_offs,
+            torch.full((), sizes.shape[0], dtype=torch.int32, device=dev),
+            1 << int(np.ceil(np.log2(sizes.sum()))),
+            [q3_lo, q3_lo + torch.from_numpy(
+                np.concatenate([sizes, pad])).to(dev)])
+    n = 1 << 23
+    key = torch.from_numpy(k_np[:n] & (DIM_SPAN - 1)).to(dev)
+    val = torch.from_numpy(v_np[:n]).to(dev)
+    c_main = (key, [val], torch.full((), n, dtype=torch.int32, device=dev),
+              0, DIM_SPAN, val > 0)
+    return d_star, d_q3, c_main
+
+
+def check_cd_main(torch, expand, agg, dev, d_star, d_q3, c_main):
+    """Kernels D and C at the slice's shapes; returns the max abs errors."""
+    d_err = 0
+    for offs, n_src, out_cap, extras in (d_star, d_q3):
+        got = expand.expand_fills(offs, n_src, out_cap, extras)
+        ref = expand.expand_fills_reference(offs, n_src, out_cap, extras)
+        torch.cuda.synchronize()
+        for g, r in zip([got[0], got[1], *got[2]],
+                        [ref[0], ref[1], *ref[2]]):
+            d_err = max(d_err, int((g.to(torch.int64) - r.to(torch.int64))
+                                   .abs().max()))
+    if d_err:
+        raise AssertionError("kernel D differs at the slice's shapes")
+    key, vals, nv, kmin, span, mask = c_main
+    c_err = 0
+    rng = np.random.default_rng(4)
+    n = key.shape[0]
+    three = [torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n,
+                                           dtype=np.int64).astype(np.int32))
+             .to(dev) for _ in range(3)]
+    k16 = torch.from_numpy(rng.integers(0, 16384, n).astype(np.int32)).to(dev)
+    one = torch.full_like(key, 5)
+    for args in ((key, vals, nv, kmin, span, mask),
+                 (k16, three, nv, 0, 16384, None),
+                 (one, vals, nv, 5, 1, None)):
+        got = agg.onehot_groupby_sums(*args[:5], mask=args[5])
+        ref = agg.onehot_groupby_sums_reference(*args[:5], mask=args[5])
+        torch.cuda.synchronize()
+        for g, r in zip([got[0], *got[1], got[2]],
+                        [ref[0], *ref[1], ref[2]]):
+            c_err = max(c_err, int((g.to(torch.int64) - r.to(torch.int64))
+                                   .abs().max()))
+    if c_err:
+        raise AssertionError("kernel C differs at the slice's shapes")
+    return d_err, c_err, (one, vals, nv), (k16, three, nv)
+
+
+# -- phase 6: the star join and TPC-H Q3 -------------------------------------
+
+def star_data():
+    """The JAX package bench's join inputs: facts (k, v) exactly as
+    bench.py draws them, dims (j, g): j a permutation of [0, 2^20) (every
+    fact key matches one dims row), g uniform in [0, 4096), next from the
+    same generator."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(0, N_KEYS, N_MAIN).astype(np.int32)
+    v = rng.integers(-1000, 1000, N_MAIN).astype(np.int32)
+    j = rng.permutation(N_KEYS).astype(np.int32)
+    g = rng.integers(0, DIM_SPAN, N_KEYS).astype(np.int32)
+    return {"k": k, "v": v}, {"j": j, "g": g}
+
+
+def star_oracle(facts, dims) -> np.ndarray:
+    """The star join in numpy: g per fact key by direct lookup, bincount
+    sums (int64, wrapped to int32) and counts; rows (g, s, c) by g."""
+    g_of_k = np.empty(N_KEYS, np.int32)
+    g_of_k[dims["j"]] = dims["g"]
+    keep = facts["v"] > 0
+    gk = g_of_k[facts["k"][keep]]
+    counts = np.bincount(gk, minlength=DIM_SPAN)
+    sums = np.bincount(gk, weights=facts["v"][keep].astype(np.int64),
+                       minlength=DIM_SPAN).astype(np.int64)
+    sums = sums.astype(np.uint32).astype(np.int32)
+    groups = np.flatnonzero(counts > 0)
+    return np.stack([groups, sums[groups], counts[groups]],
+                    axis=1).astype(np.int32)
+
+
+def q3_data():
+    """TPC-H Q3's tables at scale factor 1 row counts, with the columns and
+    value ranges of tests/test_tpch_mini.py scaled by row count: custkey
+    drawn from [0, 175,000) so one order in seven has no customer, partkey
+    from TPC-H's 200,000 parts."""
+    rng = np.random.default_rng(42)
+    orders = {
+        "orderkey": np.arange(N_ORDERS, dtype=np.int32),
+        "custkey": rng.integers(0, N_CUSTOMER * 7 // 6, N_ORDERS).astype(
+            np.int32),
+        "odate": rng.integers(0, 365, N_ORDERS).astype(np.int32),
+        "prio": rng.integers(1, 6, N_ORDERS).astype(np.int32),
+    }
+    lineitem = {
+        "orderkey": rng.integers(0, N_ORDERS, N_LINEITEM).astype(np.int32),
+        "partkey": rng.integers(0, 200_000, N_LINEITEM).astype(np.int32),
+        "qty": rng.integers(1, 50, N_LINEITEM).astype(np.int32),
+        "price": rng.integers(100, 10000, N_LINEITEM).astype(np.int32),
+        "discount": rng.integers(0, 10, N_LINEITEM).astype(np.int32),
+        "ship": rng.integers(0, 365, N_LINEITEM).astype(np.int32),
+    }
+    customer = {
+        "custkey": np.arange(N_CUSTOMER, dtype=np.int32),
+        "nation": rng.integers(0, 25, N_CUSTOMER).astype(np.int32),
+    }
+    return {"lineitem": lineitem, "orders": orders, "customer": customer}
+
+
+def q3_oracle(t) -> np.ndarray:
+    """Q3 in numpy: boolean masks, direct indexing on orderkey / custkey,
+    bincount revenue (wrapped to int32), lexsort for rev desc, orderkey."""
+    o, li, cu = t["orders"], t["lineitem"], t["customer"]
+    ck = o["custkey"]
+    ok = (ck < N_CUSTOMER) & (o["odate"] < 180)
+    ok[ok] &= cu["nation"][ck[ok]] < 10
+    sel = ok[li["orderkey"]]
+    lk = li["orderkey"][sel]
+    rev = np.bincount(lk, weights=li["price"][sel].astype(np.int64)
+                      * li["qty"][sel], minlength=N_ORDERS).astype(np.int64)
+    rev = rev.astype(np.uint32).astype(np.int32)
+    keys = np.flatnonzero(np.bincount(lk, minlength=N_ORDERS) > 0)
+    order = np.lexsort((keys, -rev[keys].astype(np.int64)))[:10]
+    return np.stack([keys[order], rev[keys][order]], axis=1).astype(np.int32)
+
+
+def run_join_check(torch, H, counters, tables, query, expect, need, name):
+    """Run ``query`` through Context(device="cuda").sql with every launch
+    count set to 0 just before; check it against ``expect`` and that each
+    kernel in ``need`` launched at least that often."""
+    ctx = H.Context(device="cuda")
+    t0 = time.perf_counter()
+    for tname, cols in tables.items():
+        ctx.create_table(tname, cols)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    got = ctx.sql(query)
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    if got.shape != expect.shape or not np.array_equal(got, expect):
+        raise AssertionError(f"{name} differs from its numpy oracle: shape "
+                             f"{got.shape} vs {expect.shape}")
+    short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
+    if short:
+        raise AssertionError(f"{name} skipped a kernel (launched, needed): "
+                             f"{short}")
+    log(f"{name}: {got.shape[0]:,} rows equal the numpy oracle; launches "
+        f"{launches}; tables load {load_s:.2f} s")
+    return ctx, launches
+
+
 def time_cuda(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -345,7 +639,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import harkdb_tpu_torch as H
-    from harkdb_tpu_torch.kernels import _lib, compact, segscan
+    from harkdb_tpu_torch.kernels import (
+        _lib, compact, expand, matmul_agg, segscan,
+    )
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+    from harkdb_tpu_torch.ops.groupby import groupby_batch
 
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -354,7 +652,7 @@ def main() -> int:
     # -- phase 2: build ----------------------------------------------------------
     path, build_log, secs = _lib.build()
     log(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s (nvcc "
-        f"{' '.join(_lib.NVCC_FLAGS)})")
+        f"{' '.join(_lib.NVCC_FLAGS)}, one process per source)")
     for line in ptxas_summary(build_log):
         log(f"  {line}")
     dev = torch.device("cuda")
@@ -372,6 +670,15 @@ def main() -> int:
         raise AssertionError("kernel B differs at the main path's shape")
     log(f"kernel A at {k.shape[0]:,} rows x 2 int32: bit-exact; kernel B "
         f"max at {sid.shape[0]:,} rows: bit-exact")
+    phase_kernels_cd(torch, expand, matmul_agg, dev)
+    d_star, d_q3, c_main = cd_shapes(torch, dev)
+    d_err, c_err, c_one, c_wide = check_cd_main(
+        torch, expand, matmul_agg, dev, d_star, d_q3, c_main)
+    log(f"kernel D at the star join ({int(d_star[1]):,} unit segments into "
+        f"{d_star[2]:,} slots, 2 extra planes) and Q3 ({int(d_q3[1]):,} "
+        f"segments of 1-7 into {d_q3[2]:,} slots): bit-exact; kernel C at "
+        f"{c_main[0].shape[0]:,} rows, span 4096 + mask, span 16384 x 3 sum "
+        f"columns, span 1: bit-exact")
 
     # -- phases 4 and 5: the main path ------------------------------------------
     ctx, launches = run_query_check(torch, H, compact, segscan, N_MAIN,
@@ -390,7 +697,40 @@ def main() -> int:
     log(f"query {N_LARGE:,} rows: median {big_ms:.3f} ms "
         f"({N_LARGE / big_ms / 1e3:.1f} M rows/s) of {big_all}")
 
-    # -- phase 6: kernels against their plain versions, CUDA events --------------
+    # -- phase 6: the star join and TPC-H Q3 ------------------------------------
+    counters = {"flat_compact": compact, "flat_segscan": segscan,
+                "onehot_groupby_sums": matmul_agg, "expand_fills": expand}
+    facts, dims = star_data()
+    star, star_launches = run_join_check(
+        torch, H, counters, {"facts": facts, "dims": dims}, STAR_QUERY,
+        star_oracle(facts, dims),
+        {"flat_compact": 4, "onehot_groupby_sums": 1, "expand_fills": 1},
+        f"star join ({N_MAIN:,} facts x {N_KEYS:,} dims)")
+    plan = star._plan(STAR_QUERY)
+    if plan.last_fast_span != DIM_SPAN:
+        raise AssertionError(f"star join took span {plan.last_fast_span}, "
+                             f"expected the dense path at {DIM_SPAN}")
+    log(f"star join plan: fast_candidate {plan.fast_candidate}, fast_agg "
+        f"{plan.fast_agg}, last_fast_span {plan.last_fast_span}")
+    del facts, dims
+    star_ms, star_all = time_query(torch, star, STAR_QUERY)
+    profile_query(torch, star, STAR_QUERY)
+    del star
+    torch.cuda.empty_cache()
+    tpch = q3_data()
+    q3, q3_launches = run_join_check(
+        torch, H, counters, tpch, Q3_QUERY, q3_oracle(tpch),
+        {"flat_compact": 1, "expand_fills": 2},
+        f"TPC-H Q3 ({N_LINEITEM:,} lineitem, {N_ORDERS:,} orders, "
+        f"{N_CUSTOMER:,} customer)")
+    del tpch
+    q3_ms, q3_all = time_query(torch, q3, Q3_QUERY)
+    del q3
+    torch.cuda.empty_cache()
+    log(f"star join: median {star_ms:.3f} ms of {star_all}")
+    log(f"TPC-H Q3: median {q3_ms:.3f} ms of {q3_all}")
+
+    # -- phase 7: kernels against their plain versions, CUDA events --------------
     cols = {"k": k, "v": v}
     a_ms = time_cuda(torch, lambda: compact.flat_compact(cols, mask, n_valid))
     a_plain = time_cuda(
@@ -402,6 +742,49 @@ def main() -> int:
         lambda: segscan.flat_segscan_reference("max", sid, [vals], -2**31))
     log(f"kernel A {a_ms:.4f} ms vs plain {a_plain:.4f} ms; kernel B "
         f"{b_ms:.4f} ms vs plain {b_plain:.4f} ms")
+    d_ms = time_cuda(torch, lambda: expand.expand_fills(*d_star))
+    d_plain = time_cuda(torch, lambda: expand.expand_fills_reference(*d_star))
+    dq_ms = time_cuda(torch, lambda: expand.expand_fills(*d_q3))
+    dq_plain = time_cuda(torch,
+                         lambda: expand.expand_fills_reference(*d_q3))
+    log(f"kernel D star join {d_ms:.4f} ms vs plain {d_plain:.4f} ms; Q3 "
+        f"shape {dq_ms:.4f} ms vs plain {dq_plain:.4f} ms")
+    ckey, cvals, cnv, ckmin, cspan, cmask = c_main
+    c_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        ckey, cvals, cnv, ckmin, cspan, mask=cmask))
+    c_plain = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums_reference(
+        ckey, cvals, cnv, ckmin, cspan, mask=cmask))
+    one_k, one_v, one_nv = c_one
+    c1_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        one_k, one_v, one_nv, 5, 1))
+    c1_plain = time_cuda(
+        torch, lambda: matmul_agg.onehot_groupby_sums_reference(
+            one_k, one_v, one_nv, 5, 1))
+    w_k, w_v, w_nv = c_wide
+    cw_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        w_k, w_v, w_nv, 0, 16384))
+    cw_plain = time_cuda(
+        torch, lambda: matmul_agg.onehot_groupby_sums_reference(
+            w_k, w_v, w_nv, 0, 16384))
+    log(f"kernel C at {ckey.shape[0]:,} rows: span 4096 + mask {c_ms:.4f} "
+        f"ms vs plain {c_plain:.4f} ms; span 1 {c1_ms:.4f} ms vs plain "
+        f"{c1_plain:.4f} ms; span 16384 x 3 sum columns {cw_ms:.4f} ms vs "
+        f"plain {cw_plain:.4f} ms")
+    # Kernel C against the sort path's group-by (sum + count) on 2^24 rows:
+    # the measurement a later PR needs to re-derive MAX_KEY_SPAN.
+    n24 = torch.full((), N_MAIN, dtype=torch.int32, device=dev)
+    vs_sort = {}
+    for span in (1024, 4096, 16384):
+        key = k & (span - 1)
+        batch = ColumnBatch({"k": key, "v": v}, n24)
+        dense_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+            key, [v], n24, 0, span), iters=10)
+        sort_ms = time_cuda(torch, lambda: groupby_batch(
+            batch, ["k"], [("v", "sum", "s"), ("v", "count", "c")]),
+            iters=10)
+        vs_sort[str(span)] = {"dense_ms": dense_ms, "sort_ms": sort_ms}
+        log(f"GROUP BY sum+count at {N_MAIN:,} rows, span {span}: kernel C "
+            f"{dense_ms:.4f} ms vs sort path {sort_ms:.4f} ms")
 
     report = {"kernels": [
         {"name": "flat_compact", "route": "cuda",
@@ -414,8 +797,21 @@ def main() -> int:
          "replaces": "harkdb_tpu/kernels/segscan.py:143",
          "launches": launches["flat_segscan"], "max_abs_err": b_err,
          "ms": b_ms, "plain_ms": b_plain},
-    ], "query_ms": {"rows_16777216": main_ms, "rows_100000000": big_ms},
-        "launches_100000000": big_launches}
+        {"name": "onehot_groupby_sums", "route": "cuda",
+         "source": "harkdb_tpu_torch/csrc/dense_agg.cu",
+         "replaces": "harkdb_tpu/kernels/matmul_agg.py:134",
+         "launches": star_launches["onehot_groupby_sums"],
+         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain},
+        {"name": "expand_fills", "route": "cuda",
+         "source": "harkdb_tpu_torch/csrc/expand.cu",
+         "replaces": "harkdb_tpu/kernels/expand.py:177",
+         "launches": star_launches["expand_fills"],
+         "max_abs_err": d_err, "ms": d_ms, "plain_ms": d_plain},
+    ], "query_ms": {"rows_16777216": main_ms, "rows_100000000": big_ms,
+                    "star_join": star_ms, "tpch_q3_sf1": q3_ms},
+        "launches": {"rows_100000000": big_launches,
+                     "star_join": star_launches, "tpch_q3_sf1": q3_launches},
+        "dense_vs_sort_ms": vs_sort}
     log(json.dumps(report))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Every ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
-(NVIDIA Hopper) into ONE shared library with a plain ``extern "C"``
-interface, loaded with ``ctypes``. The library is built at first use, from
-the package's own sources, into ``harkdb_tpu_torch/build/``; its file name
-carries a hash of the sources and flags, so a changed source builds anew
-and an unchanged one is loaded as it is.
+(NVIDIA Hopper), one ``nvcc`` process per source, all started together,
+and the objects are linked into ONE shared library with a plain
+``extern "C"`` interface, loaded with ``ctypes``. The library is built at
+first use, from the package's own sources, into ``harkdb_tpu_torch/build/``;
+its file name carries a hash of the sources and flags, so a changed source
+builds anew and an unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU never needs the library, and the
 machines that run the CPU tests have no ``nvcc``.
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +46,16 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int, _P, _I64, ctypes.c_int, _P, _P, _I32,
          _P, _P, _P, _P, _P],
+    ),
+    "harkdb_expand_fills": (
+        ctypes.c_int,
+        [_P, _P, _I64, _I64, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P],
+    ),
+    "harkdb_dense_agg_max_group": (ctypes.c_int, [ctypes.c_int]),
+    "harkdb_dense_agg": (
+        ctypes.c_int,
+        [_P, _P, _P, _I64, _I32, ctypes.c_int, ctypes.c_int, _P,
+         ctypes.c_int, _P, _P],
     ),
 }
 
@@ -89,16 +100,42 @@ def build() -> Tuple[str, str, float]:
     if os.path.exists(lib_path):
         return lib_path, "", 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for s in srcs:
+        if not s.endswith(".cu"):
+            continue
+        obj = os.path.join(
+            BUILD_DIR, f"{os.path.basename(s)[:-3]}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, s]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out.strip())
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{out.strip()}")
+    objs = [obj for _cmd, obj, _proc in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                               f"{(proc.stdout + proc.stderr).strip()}")
+        os.replace(tmp, lib_path)   # atomic: a reader never sees half a file
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
-    os.replace(tmp, lib_path)       # atomic: a reader never sees half a file
-    return lib_path, log, seconds
+    return lib_path, "\n".join(logs), seconds
 
 
 def library() -> ctypes.CDLL:
@@ -132,3 +169,10 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card (sizes grid-stride launches)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

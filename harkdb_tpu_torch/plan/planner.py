@@ -1,10 +1,10 @@
 """SQL → physical plan lowering and execution, on torch tensors.
 
-Counterpart of ``harkdb_tpu.plan.planner`` for the single-table slice:
-name resolution against the table registry, aggregate extraction and
-rewriting, and lowering to a pipeline of the operators in
-``harkdb_tpu_torch.ops``. Error contracts preserved verbatim from the
-reference:
+Counterpart of ``harkdb_tpu.plan.planner`` for the ported slice: name
+resolution against the table registry (several bindings joined left to
+right), aggregate extraction and rewriting, and lowering to a pipeline of
+the operators in ``harkdb_tpu_torch.ops``. Error contracts preserved
+verbatim from the reference:
 
   * unknown table        → "{name} is not in tables"                (parse.py:33)
   * unknown column       → "{col} is not in the schema of table {t}" (parse.py:54,69,87)
@@ -13,19 +13,26 @@ reference:
 
 Execution model (the JAX planner's, run eagerly — torch needs no jit):
 
-  * WHERE pushdown compacts the table's batch (kernel A on a card);
-  * one ``n_live`` readback shrinks the working capacity to the survivors'
-    power-of-two bucket (large inputs only);
-  * GROUP BY runs the sort + scan + pack pipeline (``ops.groupby``);
+  * WHERE pushdown compacts each binding's batch (kernel A on a card);
+  * phase A, per join step: one ranges pass (the concat sort) gives every
+    join total; one total readback sizes the output to its power-of-two
+    bucket and the same ranges materialize it (kernel D on a card);
+  * single-table queries without the dense path: one ``n_live`` readback
+    shrinks the working capacity to the survivors' bucket (large inputs);
+  * GROUP BY: the dense-key path (kernel C on a card) when the key is a
+    small-span int column and every aggregate is a sum or count — the span
+    from table statistics, or from one on-device probe per plan — else the
+    sort + scan + pack pipeline (``ops.groupby``);
   * for grouped queries with ORDER BY/DISTINCT one ``n_groups`` readback
     buckets the tail's capacity down to the group count;
   * ``run_tail``: post-computes, HAVING, projection, DISTINCT, ORDER BY,
     OFFSET and LIMIT.
 
-These readbacks are the only host synchronisations before the result is
-read. Features beyond the slice — JOIN, window functions, set operations,
-derived tables / CTEs / views, and IN / EXISTS / scalar subqueries — raise
-``PlanError`` at plan time, naming the feature.
+These readbacks (and the join-total wrap guard) are the only host
+synchronisations before the result is read. Features beyond the slice —
+window functions, set operations, derived tables / CTEs / views, and IN /
+EXISTS / scalar subqueries — raise ``PlanError`` at plan time, naming the
+feature.
 """
 
 from __future__ import annotations
@@ -38,12 +45,16 @@ import torch
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
+from harkdb_tpu_torch.kernels.matmul_agg import (
+    KEY_TILE, MAX_KEY_SPAN, onehot_groupby_sums,
+)
 from harkdb_tpu_torch.ops.groupby import groupby_batch
+from harkdb_tpu_torch.ops.join import compute_join_ranges, join_batches
 from harkdb_tpu_torch.ops.sort import lexsort_permutation, sort_batch
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
-from harkdb_tpu_torch.plan.nulls import NullSemantics
+from harkdb_tpu_torch.plan.nulls import NullSemantics, valid_mask
 from harkdb_tpu_torch.plan.strings import StringLowering
 from harkdb_tpu_torch.prims.compaction import compact_batch
 from harkdb_tpu_torch.sql.ast_nodes import (
@@ -61,6 +72,26 @@ def _next_pow2(n: int) -> int:
     if n <= 1:
         return 1
     return 1 << (int(n - 1).bit_length())
+
+
+def _check_join_total(ranges) -> None:
+    """int32 wrap guard: the exact pair total wraps past 2^31 (a 65536²
+    CROSS JOIN wraps to exactly 0) — the approximate float32 total turns
+    that into a clear error instead of a silently empty/truncated
+    result. The threshold is far beyond any materializable capacity."""
+    if ranges.total_approx is not None:
+        approx = float(ranges.total_approx)
+        if approx > 1.8e9:
+            raise PlanError(
+                f"Join result would exceed ~1.8e9 pairs "
+                f"(≈{approx:.3g}) — beyond the engine's "
+                f"2^31-row capacity; add join keys or filters"
+            )
+
+
+def _pad_span(span: int) -> int:
+    """Round a key span up to the dense path's key-tile granule."""
+    return -(-span // KEY_TILE) * KEY_TILE
 
 
 def _null_extreme_sub(a, isnull, d: bool, nu):
@@ -89,9 +120,8 @@ def _check_ported(stmt: SelectStmt) -> None:
         if isinstance(j.table, DerivedRef) and j.table.alias.startswith(
                 "#corr"):
             raise _unsupported("IN/EXISTS/scalar subqueries")
-    if stmt.joins:
-        raise _unsupported("JOIN")
-    if isinstance(stmt.table, DerivedRef):
+    if any(isinstance(ref, DerivedRef)
+           for ref in [stmt.table] + [j.table for j in stmt.joins]):
         raise _unsupported("Derived tables, CTEs and views")
     exprs = [it.expr for it in stmt.items] + list(stmt.group_by)
     exprs += [o.expr for o in stmt.order_by]
@@ -254,7 +284,8 @@ def _substitute_aggs(expr, agg_map):
 
 
 class QueryPlan(StringLowering, NullSemantics):
-    """A planned single-table query, executed eagerly on torch tensors."""
+    """A planned query: phase-A join steps + the phase-B pipeline,
+    executed eagerly on torch tensors."""
 
     def __init__(self, stmt: SelectStmt, tables: Dict[str, Table],
                  config: EngineConfig = DEFAULT_CONFIG):
@@ -272,21 +303,81 @@ class QueryPlan(StringLowering, NullSemantics):
         stmt = decorrelate_aggregates(stmt, tables)
         self.stmt = stmt
         _check_ported(stmt)
-        # FROM resolution (reference contract parse.py:29-33).
-        refs = [stmt.table]
+        # FROM / JOIN resolution (reference contract parse.py:29-33).
+        refs = [stmt.table] + [j.table for j in stmt.joins]
         bindings = []
+        seen = set()
         for ref in refs:
+            b = ref.binding
+            if b in seen:
+                raise PlanError(f"Duplicate table binding {b!r}; use aliases")
+            seen.add(b)
             if ref.name not in tables:
                 raise PlanError(f"{ref.name} is not in tables",
                                 "table", ref.name)
-            bindings.append((ref.binding, ref.name,
-                             tables[ref.name].get_schema()))
+            bindings.append((b, ref.name, tables[ref.name].get_schema()))
         self.bindings = bindings
         res = _Resolver(bindings)
         self.resolver = res
-        # Outer-join NULL model (plan/nulls.py): the slice has no joins, so
-        # no binding is nullable; aggregate NULL flags still apply.
+
+        # Joins: resolve keys; joins fold left-to-right (left side = the
+        # accumulated working relation). Keys per step are LISTS — ``ON``
+        # accepts a conjunction of column equalities (multi-key equi-join).
+        self.join_steps = []
+        #: per step: flag columns guarding the accumulated-side join keys
+        #: (a nullable key — from an earlier outer join — must match
+        #: nothing: SQL NULL = NULL is UNKNOWN, not a match).
+        self.join_key_flags: List[List[str]] = []
+        # ---- outer-join NULL model -------------------------------------------
+        # Each LEFT (and RIGHT/FULL) join emits hidden 0/1 matched-flag
+        # column(s) (ops/join.py matched_out); 0 marks the rows SQL would
+        # fill with NULL on that side. The flags drive IS [NOT] NULL,
+        # three-valued predicates, NULL-skipping aggregates,
+        # NULL-as-its-own-group grouping, and sql_df's None/NaN decode.
         self.binding_flags: Dict[str, List[str]] = {}
+        self.null_flags: Dict[str, str] = {}     # left-join rb → matched col
+        avail = {bindings[0][0]}
+        for j, ref in zip(stmt.joins, refs[1:]):
+            rb = ref.binding
+            lks, rks = [], []
+            for a_raw, b_raw in j.conds:
+                a = res.rewrite(a_raw)
+                b = res.rewrite(b_raw)
+                # Decide which side of ON belongs to the incoming table.
+                a_side = a.name.split(".", 1)[0]
+                b_side = b.name.split(".", 1)[0]
+                if b_side == rb and a_side in avail:
+                    lk, rk = a.name, b.name
+                elif a_side == rb and b_side in avail:
+                    lk, rk = b.name, a.name
+                else:
+                    raise PlanError(
+                        f"JOIN ON must relate the joined table {rb} to an "
+                        f"already-joined table"
+                    )
+                lks.append(lk)
+                rks.append(rk)
+            kflags: List[str] = []
+            for lk in lks:
+                for f in self.binding_flags.get(lk.split(".", 1)[0], ()):
+                    if f not in kflags:
+                        kflags.append(f)
+            self.join_steps.append((rb, tuple(lks), tuple(rks), j.kind))
+            self.join_key_flags.append(kflags)
+            avail.add(rb)
+            flag = f"#matched.{rb}"
+            if j.kind == "left":
+                self.null_flags[rb] = flag
+                self.binding_flags[rb] = [flag]
+            elif j.kind in ("right", "full"):
+                # RIGHT/FULL: the ACCUMULATED side becomes nullable — every
+                # already-joined binding gains this step's left-side flag.
+                lflag = f"#lmatched.{rb}"
+                for b2 in list(avail - {rb}):
+                    self.binding_flags.setdefault(b2, []).append(lflag)
+                if j.kind == "full":
+                    self.null_flags[rb] = flag
+                    self.binding_flags.setdefault(rb, []).append(flag)
 
         # ---- string columns (dictionary-encoded at ingest) -------------------
         # str_dicts: internal column → its current sorted dictionary. Codes are
@@ -303,6 +394,17 @@ class QueryPlan(StringLowering, NullSemantics):
                 d = t.column_dict(c)
                 if d is not None:
                     self.str_dicts[f"{b}.{c}"] = d
+        for _rb, lks, rks, _k in self.join_steps:
+            for lk, rk in zip(lks, rks):
+                ld = self.str_dicts.get(lk)
+                rd = self.str_dicts.get(rk)
+                if (ld is None) != (rd is None):
+                    raise PlanError(
+                        f"Cannot join string column to numeric column "
+                        f"({lk} = {rk})"
+                    )
+                if ld is not None:
+                    self._merge_dicts(lk, rk)
 
         # Select list: expand stars, resolve, classify.
         items: List[Tuple[object, str]] = []       # (resolved expr, display)
@@ -320,6 +422,23 @@ class QueryPlan(StringLowering, NullSemantics):
         self.select_items = items
 
         where_ast = stmt.where
+        # Non-equi ON residuals: for INNER joins they are equivalent to
+        # WHERE conjuncts (relational algebra); outer joins reject them —
+        # an outer-join ON residual changes which rows count as MATCHED
+        # (NULL-extended vs filtered), which the matched-flag machinery
+        # does not model.
+        for j in stmt.joins:
+            if not j.residuals:
+                continue
+            if j.kind != "inner":
+                raise PlanError(
+                    "Non-equi ON conditions are only supported on INNER "
+                    "joins (an outer join's ON residual changes matched-"
+                    "row semantics); filter in WHERE instead"
+                )
+            for r_ast in j.residuals:
+                where_ast = (r_ast if where_ast is None
+                             else BinOp("and", where_ast, r_ast))
         having_ast = stmt.having
         self.where = res.rewrite(where_ast) if where_ast is not None else None
         group_items_raw = [res.rewrite(g) for g in stmt.group_by]
@@ -494,10 +613,19 @@ class QueryPlan(StringLowering, NullSemantics):
         self._remap_dev_cache: Dict[str, object] = {}
 
         # ---- filter pushdown -------------------------------------------------
-        # Split WHERE into top-level AND conjuncts; a conjunct referencing the
-        # table's binding is evaluated on the loaded table first (one
-        # compaction); conjuncts referencing no column stay residual.
+        # Split WHERE into top-level AND conjuncts; a conjunct referencing a
+        # single binding is evaluated on that table BEFORE its join (never
+        # past a LEFT join's right side: zero-filled unmatched rows must still
+        # be eliminated by the post-join residual). A conjunct may be pushed
+        # below the joins only when its binding's rows are never
+        # NULL-extended: inner/cross-joined bindings that do not later sit on
+        # the nullable side of an outer join (RIGHT/FULL make the whole
+        # accumulated side nullable — binding_flags).
         inner_bindings = {bindings[0][0]}
+        for j, ref in zip(stmt.joins, refs[1:]):
+            if j.kind in ("inner", "cross"):
+                inner_bindings.add(ref.binding)
+        inner_bindings -= set(self.binding_flags)
 
         def conjuncts(e):
             if isinstance(e, BinOp) and e.op == "and":
@@ -678,12 +806,63 @@ class QueryPlan(StringLowering, NullSemantics):
             self._nullable_flags_in(e) for e, _n in self.final_items
         ]
 
-        # The dense-key GROUP BY (kernel C) is not ported yet: every grouped
-        # query takes the sort path, which gives the same rows (int32 sums
-        # are exact mod 2^32 and keys come out ascending either way).
-        self.fast_candidate = None
-        self.fast_agg = None
-        self.last_fast_span = None
+        # Dense-key GROUP BY (kernels/matmul_agg.py, kernel C on a card):
+        # single int key with a small span, aggregates all sum/count over
+        # direct int columns. Eligibility is STRUCTURAL at plan time
+        # (fast_candidate); the key range comes from host table stats when
+        # the key is a no-join base column (free, fast_agg proven here), and
+        # otherwise from a one-time on-device min/max probe at first
+        # execution (post-join / post-WHERE keys) — see _resolve_fast.
+        self.fast_candidate = None      # key internal name when structural
+        self.fast_agg = None            # (key, key_min, span_p) when proven
+        self._probed_fast = None        # execute-time probe cache
+        self.last_fast_span = None      # introspection: span used, or None
+        if (
+            self.grouped
+            and not self.group_key_exprs
+            and len(self.group_keys) == 1
+            # a nullable key grows exec keys with its matched flag — the
+            # dense kernel is single-key, and NULL-as-its-own-group needs
+            # the general path
+            and len(self.group_exec_keys) == 1
+            and self.agg_specs
+            and not self.agg_arg_cols
+            and all(op in ("sum", "count") for _s, op, _o in self.agg_specs)
+        ):
+            def _int_col(internal: str) -> bool:
+                if "." not in internal:
+                    return False
+                bb, col = internal.split(".", 1)
+                tname2 = next(t for b2, t, _ in bindings if b2 == bb)
+                a = self._source(tables, tname2).host_columns.get(col)
+                return a is not None and np.issubdtype(a.dtype, np.integer)
+
+            key_internal = self.group_keys[0]
+            int_srcs = all(
+                op == "count" or _int_col(src)   # count ignores values
+                for src, op, _out in self.agg_specs
+            )
+            if int_srcs and _int_col(key_internal):
+                self.fast_candidate = key_internal
+                # Host table stats describe ORIGINAL codes; a remapped
+                # (merged-dictionary) key must go through the on-device
+                # probe instead.
+                if not self.join_steps and key_internal not in self._remap:
+                    b, col = key_internal.split(".", 1)
+                    tname = next(t for bb, t, _ in bindings if bb == b)
+                    rng = self._source(tables, tname).column_range(col)
+                    # u32-compat key order with negative keys must take the
+                    # sort path (keys_axis is emitted signed-ascending).
+                    compat_blocks = (
+                        self.config.compat_u32_key_order
+                        and rng is not None and rng[0] < 0
+                    )
+                    if rng is not None and not compat_blocks:
+                        span = rng[1] - rng[0] + 1
+                        if span <= MAX_KEY_SPAN:
+                            self.fast_agg = (
+                                key_internal, rng[0], _pad_span(span)
+                            )
 
         # ---- projection pushdown ---------------------------------------------
         # Only load columns the query actually touches (select/where/having/
@@ -706,6 +885,8 @@ class QueryPlan(StringLowering, NullSemantics):
         used |= set(self.group_keys)
         for _n, e in self.group_key_exprs:
             used |= {n.name for n in walk(e) if isinstance(n, Col)}
+        for _rb, lks, rks, _k in self.join_steps:
+            used |= set(lks) | set(rks)
         self.used_columns = used
 
     # -- NULL machinery: plan/nulls.py (NullSemantics mixin) -------------------
@@ -721,6 +902,52 @@ class QueryPlan(StringLowering, NullSemantics):
                 a = _null_extreme_sub(a, ~m, d, nu)
         return a
 
+    def _probe_impl(self, batch: ColumnBatch):
+        """On-device (min, max, any) of the group key over live rows passing
+        the WHERE residual, read back in one transfer — the execute-time
+        range check that admits post-join / post-WHERE keys to the dense
+        path."""
+        cap = batch.capacity
+        live = torch.arange(cap, dtype=torch.int32,
+                            device=batch.device) < batch.n_valid
+        if self.where_residual is not None:
+            live = live & eval_expr(
+                self.where_residual, batch.columns, cap, self.config
+            ).to(torch.bool)
+        key = batch.column(self.fast_candidate)
+        info = torch.iinfo(key.dtype)
+        kmin = torch.where(live, key, info.max).min()
+        kmax = torch.where(live, key, info.min).max()
+        kmin, kmax, nonempty = torch.stack([
+            kmin.to(torch.int64), kmax.to(torch.int64),
+            live.any().to(torch.int64),
+        ]).tolist()
+        return kmin, kmax, bool(nonempty)
+
+    def _resolve_fast(self, batch: ColumnBatch):
+        """(fast_span, key_min) for this execution; (None, 0) = sort path.
+
+        Statically proven spans (no-join base-table stats) skip the probe;
+        otherwise one device round-trip per plan measures the live key range
+        (cached on the plan — the plan cache is invalidated whenever its
+        tables change, api.create_table/drop_table)."""
+        if self.fast_agg is not None:
+            _k, kmin, span_p = self.fast_agg
+            return span_p, kmin
+        if self.fast_candidate is None:
+            return None, 0
+        if self._probed_fast is None:
+            kmin, kmax, nonempty = self._probe_impl(batch)
+            fast = (None, 0)
+            if nonempty and not (
+                self.config.compat_u32_key_order and kmin < 0
+            ):
+                span = kmax - kmin + 1
+                if span <= MAX_KEY_SPAN:
+                    fast = (_pad_span(span), kmin)
+            self._probed_fast = fast
+        return self._probed_fast
+
     def _apply_pushdown(self, binding: str, batch: ColumnBatch) -> ColumnBatch:
         mask = eval_expr(
             self.pushdown[binding], batch.columns, batch.capacity,
@@ -728,39 +955,106 @@ class QueryPlan(StringLowering, NullSemantics):
         ).to(torch.bool)
         return compact_batch(batch, mask)
 
+    def _join_ranges(self, left: ColumnBatch, right: ColumnBatch, l_keys,
+                     r_keys, l_flags=(), r_flags=(), need_full=False):
+        """Count phase of one join step: one concat sort gives the ranges
+        and every total; the same tensors then feed materialization.
+
+        Empty ``l_keys`` = CROSS JOIN (constant key: one all-pairs run).
+        ``l_flags``/``r_flags`` are matched-flag columns guarding that
+        side's keys — rows with any flag 0 have a NULL key and must match
+        nothing (three-valued ON semantics; plan/nulls.py)."""
+        if l_keys:
+            lk = [left.column(k) for k in l_keys]
+            rk = [right.column(k) for k in r_keys]
+        else:                       # CROSS JOIN
+            lk = [torch.zeros(left.capacity, dtype=torch.int32,
+                              device=left.device)]
+            rk = [torch.zeros(right.capacity, dtype=torch.int32,
+                              device=right.device)]
+
+        def null_of(batch, flags):
+            if not flags:
+                return None
+            return ~valid_mask(flags, batch.columns)
+
+        return compute_join_ranges(
+            lk, left.n_valid, rk, right.n_valid,
+            l_cols=[left.column(n) for n in left.names],
+            r_cols=[right.column(n) for n in right.names],
+            l_null=null_of(left, l_flags), r_null=null_of(right, r_flags),
+            need_full=need_full,
+        )
 
     # -- execution ------------------------------------------------------------
     def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
+        # Phase A: load + joins (count-then-materialize per join).
         b0 = self.bindings[0][0]
         batch = self._load(tables, 0)
         if b0 in self.pushdown:
             batch = self._apply_pushdown(b0, batch)
-        # Capacity shrink after filter pushdown: the group/order sorts run
-        # over the surviving rows' power-of-two bucket instead of the input
-        # capacity, for one n_valid readback (config.shrink_rows_min gates
-        # small inputs out of the sync).
-        if (self.pushdown
+        row_align = self.config.row_align
+        for step_idx, (rb, lks, rks, kind) in enumerate(self.join_steps):
+            right = self._load(tables, 1 + step_idx)
+            if rb in self.pushdown:
+                right = self._apply_pushdown(rb, right)
+            kflags = tuple(self.join_key_flags[step_idx])
+            l_names, r_names = batch.names, right.names
+            if kind == "right":
+                # RIGHT JOIN = LEFT with the operands swapped: the incoming
+                # table is the preserved side; the accumulated relation's
+                # columns null-fill on its unmatched rows (#lmatched flag).
+                ranges = self._join_ranges(right, batch, rks, lks, (), kflags)
+                _check_join_total(ranges)
+                total = int(ranges.total_left)
+                batch = join_batches(
+                    None, None, None, None,
+                    _next_pow2(max(total, row_align)),
+                    {n: n for n in r_names}, {n: n for n in l_names},
+                    kind="left", ranges=ranges,
+                    matched_out=f"#lmatched.{rb}",
+                )
+                continue
+            ranges = self._join_ranges(batch, right, lks, rks, kflags, (),
+                                       kind == "full")
+            _check_join_total(ranges)
+            total = int(
+                ranges.total_full if kind == "full"
+                else ranges.total_left if kind == "left"
+                else ranges.total
+            )
+            batch = join_batches(
+                None, None, None, None, _next_pow2(max(total, row_align)),
+                {n: n for n in l_names}, {n: n for n in r_names},
+                kind="inner" if kind == "cross" else kind, ranges=ranges,
+                matched_out=self.null_flags.get(rb),
+                l_matched_out=f"#lmatched.{rb}" if kind == "full" else None,
+            )
+        # Phase B. The dense path's span: proven from table stats, or one
+        # probe per plan.
+        fast_span, key_min = self._resolve_fast(batch)
+        self.last_fast_span = fast_span
+        # Capacity shrink after filter pushdown (single-table, sort path):
+        # the group/order sorts run over the surviving rows' power-of-two
+        # bucket instead of the input capacity, for one n_valid readback
+        # (config.shrink_rows_min gates small inputs out of the sync).
+        if (not self.join_steps and self.pushdown and fast_span is None
                 and batch.capacity >= self.config.shrink_rows_min
                 and (self.grouped or self.order_items or self.distinct)):
             n_live = int(batch.n_valid)
-            cap_b = min(
-                _next_pow2(max(n_live, self.config.row_align)),
-                batch.capacity,
-            )
+            cap_b = min(_next_pow2(max(n_live, row_align)), batch.capacity)
             if cap_b < batch.capacity:
                 batch = _slice(batch, cap_b)
         if self.grouped and (self.order_items or self.distinct):
             # Split at the aggregate: read n_groups back and bucket the
             # tail's capacity down, so its sort runs over the groups instead
             # of the full input capacity.
-            g = self._phase_b(batch, stop_after_group=True)
+            g = self._phase_b(batch, fast_span, key_min,
+                              stop_after_group=True)
             n_groups = int(g.n_valid)
-            cap2 = min(
-                _next_pow2(max(n_groups, self.config.row_align)),
-                g.capacity,
-            )
+            cap2 = min(_next_pow2(max(n_groups, row_align)), g.capacity)
             return self.run_tail(_slice(g, cap2))
-        return self._phase_b(batch)
+        return self._phase_b(batch, fast_span, key_min)
 
     def _source(self, tables: Dict[str, Table], tname: str):
         """Table behind a binding's table name."""
@@ -795,13 +1089,14 @@ class QueryPlan(StringLowering, NullSemantics):
             out[internal] = col
         return ColumnBatch(out, src.n_valid)
 
-    def _phase_b(self, batch: ColumnBatch,
+    def _phase_b(self, batch: ColumnBatch, fast_span, key_min: int,
                  stop_after_group: bool = False) -> ColumnBatch:
         cap = batch.capacity
         dev = batch.device
-        # WHERE residual (conjuncts touching no column; the others were
-        # pushed down). The predicate mask FUSES into whichever downstream
-        # operator sorts anyway (group-by, ORDER BY, DISTINCT).
+        # WHERE residual (post-join conjuncts, and conjuncts touching no
+        # column; the others were pushed down). The predicate mask FUSES
+        # into whichever downstream operator runs anyway (the dense
+        # aggregation, group-by, ORDER BY, DISTINCT).
         where_mask = None
         if self.where_residual is not None:
             where_mask = eval_expr(
@@ -810,6 +1105,32 @@ class QueryPlan(StringLowering, NullSemantics):
             if not (self.grouped or self.order_items or self.distinct):
                 batch = compact_batch(batch, where_mask)
                 where_mask = None
+
+        # GROUP BY + aggregates — the dense-key path when the gate admits
+        # it (small int key span, sum/count only; span proven from table
+        # stats or probed on the device — _resolve_fast).
+        if self.grouped and fast_span is not None:
+            key_name, span = self.fast_candidate, fast_span
+            sum_srcs = list(dict.fromkeys(
+                src for src, op, _ in self.agg_specs if op == "sum"
+            ))
+            counts_k, sums_k, keys_axis = onehot_groupby_sums(
+                batch.column(key_name),
+                [batch.column(s) for s in sum_srcs],
+                batch.n_valid, key_min, span, mask=where_mask,
+            )
+            sums_by_src = dict(zip(sum_srcs, sums_k))
+            gcols = {key_name: keys_axis}
+            for src, op, out_name in self.agg_specs:
+                gcols[out_name] = (
+                    counts_k if op == "count" else sums_by_src[src]
+                )
+            dense = ColumnBatch(gcols, torch.full(
+                (), span, dtype=torch.int32, device=dev))
+            batch = compact_batch(dense, counts_k > 0)
+            if stop_after_group:
+                return batch
+            return self.run_tail(batch)
 
         if self.grouped:
             cols = dict(batch.columns)
@@ -983,6 +1304,11 @@ class QueryPlan(StringLowering, NullSemantics):
         lines = [f"Scan {tname} as {b}"]
         for b in self.pushdown:
             lines.append(f"Filter pushdown → {b}")
+        for rb, lks, rks, kind in self.join_steps:
+            cond = " and ".join(
+                f"{lk} = {rk}" for lk, rk in zip(lks, rks)
+            ) or "<cross>"
+            lines.append(f"SortJoin({kind}) {cond} (+ {rb})")
         if self.where_residual is not None:
             lines.append("Filter (WHERE residual) → masked-scan compaction")
         if self.grouped:

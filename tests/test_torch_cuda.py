@@ -1,8 +1,9 @@
 """harkdb_tpu_torch's CUDA kernels on the card (marker ``gpu``).
 
 Repeats chip_smoke.py's phase 3 — each kernel held against its plain
-PyTorch version on edge cases and at the main path's shapes — and checks
-the main query on the card against the CPU port. Whether a card is present
+PyTorch version on edge cases and at the main paths' shapes — and checks
+the main query, the joins and the dense-key GROUP BY on the card against
+the CPU port. Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
 
@@ -77,3 +78,71 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
     segscan.flat_segscan("add", torch.zeros_like(x), [x], 0)
     assert (compact.LAUNCHES, segscan.LAUNCHES) == (before[0] + 1,
                                                     before[1] + 1)
+
+
+def test_kernels_c_d_edge_cases(cuda):
+    import chip_smoke
+    from harkdb_tpu_torch.kernels import expand, matmul_agg
+
+    chip_smoke.phase_kernels_cd(torch, expand, matmul_agg, cuda)
+
+
+def test_kernels_c_d_at_slice_shapes(cuda):
+    import chip_smoke
+    from harkdb_tpu_torch.kernels import expand, matmul_agg
+
+    d_star, d_q3, c_main = chip_smoke.cd_shapes(torch, cuda)
+    d_err, c_err, _one, _wide = chip_smoke.check_cd_main(
+        torch, expand, matmul_agg, cuda, d_star, d_q3, c_main)
+    assert d_err == 0 and c_err == 0
+
+
+JOIN_QUERIES = [
+    "select g, sum(v) as s, count(*) as c from f join d on f.k = d.j "
+    "where v > 0 group by g order by g",
+    "select f.k, f.v, d.g from f left join d on f.k = d.j "
+    "order by f.k, f.v, d.g",
+    "select f.k, d.j, d.g from f right join d on f.k = d.j "
+    "order by d.j, f.k, f.v",
+    "select f.k, f.v, d.j from f full outer join d on f.k = d.j "
+    "and f.v = d.g order by f.k nulls last, f.v, d.j",
+    "select count(*) as n, sum(f.v) as s from f cross join d where d.j < 3",
+    "select d.g, count(f.v) as c, sum(f.v) as s from f left join d "
+    "on f.k = d.j group by d.g order by d.g",
+]
+
+
+def test_join_queries_match_cpu_port(cuda):
+    import harkdb_tpu_torch as H
+    from harkdb_tpu_torch.kernels import expand, matmul_agg
+
+    rng = np.random.default_rng(5)
+    f = {"k": rng.integers(0, 300, 20_000).astype(np.int32),
+         "v": rng.integers(-50, 50, 20_000).astype(np.int32)}
+    d = {"j": rng.permutation(400)[:250].astype(np.int32),
+         "g": rng.integers(0, 40, 250).astype(np.int32)}
+    on_card = H.Context(device=cuda)
+    on_cpu = H.Context(device="cpu")
+    for c in (on_card, on_cpu):
+        c.create_table("f", f)
+        c.create_table("d", d)
+    expand.LAUNCHES = matmul_agg.LAUNCHES = 0
+    for q in JOIN_QUERIES:
+        np.testing.assert_array_equal(on_card.sql(q), on_cpu.sql(q),
+                                      err_msg=q)
+        assert on_card._plan(q).last_fast_span == on_cpu._plan(
+            q).last_fast_span
+    assert expand.LAUNCHES >= len(JOIN_QUERIES)
+    assert matmul_agg.LAUNCHES >= 1
+
+
+def test_new_kernels_never_take_plain_version(cuda):
+    from harkdb_tpu_torch.kernels import expand, matmul_agg
+
+    offs = torch.arange(0, 20, 2, dtype=torch.int32, device=cuda)
+    nv = torch.full((), 10, dtype=torch.int32, device=cuda)
+    before = (expand.LAUNCHES, matmul_agg.LAUNCHES)
+    expand.expand_fills(offs, nv, 32, [offs])
+    matmul_agg.onehot_groupby_sums(offs, [offs], nv, 0, 32)
+    assert (expand.LAUNCHES, matmul_agg.LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)

@@ -1,9 +1,11 @@
-"""harkdb_tpu_torch kernels A and B: plain versions vs the JAX package.
+"""harkdb_tpu_torch kernels A-D: plain versions vs the JAX package.
 
 The port's plain PyTorch versions (``flat_compact_reference``,
-``flat_segscan_reference``) are held against the Pallas kernels run in
-interpret mode on the CPU (as tests/test_kernels.py runs them) and against
-the JAX doubling scan, on the same inputs made with numpy from a seed.
+``flat_segscan_reference``, ``expand_fills_reference``,
+``onehot_groupby_sums_reference``) are held against the Pallas kernels run
+in interpret mode on the CPU (as tests/test_kernels.py runs them), against
+the JAX doubling scan and against numpy oracles, on the same inputs made
+with numpy from a seed.
 Integer outputs and bit patterns must be identical; float32 add with
 random values differs from the Pallas kernel only by summation order, so
 those cases use integer-valued floats, whose sums are exact in any order.
@@ -18,13 +20,17 @@ import jax
 import jax.numpy as jnp
 
 from harkdb_tpu.kernels.compact import flat_compact as jax_flat_compact
+from harkdb_tpu.kernels.expand import expand_fills as jax_expand_fills
+from harkdb_tpu.kernels.matmul_agg import (
+    onehot_groupby_sums as jax_onehot_groupby_sums,
+)
 from harkdb_tpu.kernels.segscan import flat_segscan as jax_flat_segscan
 from harkdb_tpu.prims.segmented import doubling_segmented_scan
 
 # one compile per (op, shape) instead of one per eager op and round
 jax_doubling = jax.jit(doubling_segmented_scan, static_argnums=0)
 
-from harkdb_tpu_torch.kernels import compact, segscan
+from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
 
 SIZES = [1, 1000, 16384, 16385, 40000]
 _JNP_OPS = {"add": jnp.add, "max": jnp.maximum, "min": jnp.minimum,
@@ -213,3 +219,218 @@ class TestSegscanReference:
             cols = [torch.zeros(n, dtype=torch.int32, device="meta")]
         with pytest.raises(ValueError):
             segscan.flat_segscan(op, sid, cols, 0)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _nv(n: int) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32)
+
+
+class TestExpandReference:
+    """Kernel D's plain version vs the Pallas kernel in interpret mode and
+    a numpy searchsorted oracle, on the cases of tests/test_kernels.py
+    (TestExpandKernel). Only live slots (p < total) are specified."""
+
+    BLOCK = 16384                       # the Pallas kernel's slot block
+
+    @staticmethod
+    def _oracle(offsets, n_src, out_cap):
+        return np.maximum(np.searchsorted(offsets[:n_src], np.arange(out_cap),
+                                          side="right") - 1, 0)
+
+    CAP = 1 << 16            # one source capacity: one Pallas trace
+
+    def _check(self, offsets, n_src, out_cap, extras, total):
+        pad = self.CAP - offsets.shape[0]
+        offsets = np.concatenate([offsets, np.zeros(pad, np.int32)])
+        extras = [np.concatenate([e, np.zeros(pad, np.int32)])
+                  for e in extras]
+        seg, off_f, fills = expand.expand_fills_reference(
+            _t(offsets), _nv(n_src), out_cap, [_t(e) for e in extras])
+        jseg, joff, jfills = jax_expand_fills(
+            jnp.asarray(offsets), jnp.int32(n_src), out_cap,
+            tuple(jnp.asarray(e) for e in extras), interpret=True)
+        live = np.arange(out_cap) < total
+        want = self._oracle(offsets, n_src, out_cap)
+        for got, pallas, oracle in (
+            [(seg, jseg, want), (off_f, joff, offsets[want])]
+            + [(f, jf, e[want]) for f, jf, e in zip(fills, jfills, extras)]
+        ):
+            assert got.dtype == torch.int32 and got.shape == (out_cap,)
+            np.testing.assert_array_equal(got.numpy()[live],
+                                          np.asarray(pallas)[live])
+            np.testing.assert_array_equal(got.numpy()[live], oracle[live])
+
+    @pytest.mark.parametrize("case", ["random", "unit", "one_big", "aligned"])
+    def test_vs_pallas_interpret(self, rng, case):
+        out_cap = 3 * self.BLOCK + 1000
+        if case == "random":
+            sizes = rng.integers(1, 9, 9000).astype(np.int32)
+        elif case == "unit":
+            sizes = np.ones(out_cap - 5, np.int32)
+        elif case == "one_big":
+            sizes = np.array([out_cap + 7], np.int32)
+        else:                  # segments starting exactly at block edges
+            sizes = np.full(6, self.BLOCK, np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        ends = (offsets + sizes).astype(np.int32)
+        self._check(offsets, len(sizes), out_cap, [ends], int(sizes.sum()))
+
+    def test_padded_source_capacity(self, rng):
+        """Entries at index >= n_src are ignored (engine padding)."""
+        sizes = rng.integers(1, 30, 500).astype(np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        n_src = 300
+        padded = np.concatenate([offsets, np.zeros(2048, np.int32)])
+        out_cap = int(offsets[n_src - 1] + sizes[n_src - 1]) + 77
+        self._check(padded, n_src, out_cap, [],
+                    int(sizes[:n_src].sum()))
+
+    def test_random_small_trials(self, rng):
+        for _trial in range(8):
+            n_seg = int(rng.integers(1, 200))
+            sizes = rng.integers(1, 400, n_seg).astype(np.int32)
+            offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+            total = int(sizes.sum())
+            # one output capacity for every trial (one Pallas trace); the
+            # slots past total + a random margin are not compared
+            live_cap = total + int(rng.integers(0, 300))
+            mono = np.minimum(offsets // 2, 1 << 20).astype(np.int32)
+            self._check(offsets, n_seg, 80_000 + 300, [mono],
+                        min(total, live_cap))
+
+    def test_no_source_and_expand_ids(self):
+        offsets = np.array([0, 3, 9], np.int32)
+        seg, off_f, fills = expand.expand_fills_reference(
+            _t(offsets), _nv(0), 16, [_t(offsets)])
+        assert seg.tolist() == [0] * 16
+        assert off_f.tolist() == [2**31 - 1] * 16      # dead entries
+        ids = expand.expand_ids(_t(offsets), _nv(3), 12)
+        assert ids.tolist() == [0, 0, 0, 1, 1, 1, 1, 1, 1, 2, 2, 2]
+
+    def test_wrapper_takes_plain_version_on_cpu(self, rng):
+        sizes = rng.integers(1, 9, 700).astype(np.int32)
+        offsets = _t((np.cumsum(sizes) - sizes).astype(np.int32))
+        before = expand.LAUNCHES
+        got = expand.expand_fills(offsets, _nv(700), 5000, [offsets])
+        ref = expand.expand_fills_reference(offsets, _nv(700), 5000,
+                                            [offsets])
+        assert expand.LAUNCHES == before
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2][0], ref[2][0])
+
+    @pytest.mark.parametrize("bad", ["dtype", "n_src", "extra", "capacity",
+                                     "empty", "device"])
+    def test_wrapper_rejects(self, bad):
+        offs = torch.arange(8, dtype=torch.int32)
+        nv, cap, extras = _nv(8), 16, [offs]
+        if bad == "empty":
+            offs, extras = torch.zeros(0, dtype=torch.int32), []
+        elif bad == "dtype":
+            offs = offs.to(torch.int64)
+        elif bad == "n_src":
+            nv = torch.tensor([8], dtype=torch.int32)
+        elif bad == "extra":
+            extras = [torch.arange(9, dtype=torch.int32)]
+        elif bad == "capacity":
+            cap = -1
+        else:
+            offs = torch.arange(8, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            expand.expand_fills(offs, nv, cap, extras)
+
+
+class TestOnehotReference:
+    """Kernel C's plain version vs the Pallas kernel in interpret mode on
+    the cases of tests/test_kernels.py (TestOnehotGroupby): counts, sums
+    and keys bit for bit."""
+
+    def _check(self, k, cols, n_valid, key_min, span, mask=None):
+        got = matmul_agg.onehot_groupby_sums_reference(
+            _t(k), [_t(c) for c in cols], _nv(n_valid), key_min, span,
+            mask=None if mask is None else _t(mask))
+        want = jax_onehot_groupby_sums(
+            jnp.asarray(k), [jnp.asarray(c) for c in cols],
+            jnp.int32(n_valid), jnp.int32(key_min), span,
+            mask=None if mask is None else jnp.asarray(mask), interpret=True)
+        for g, w in zip([got[0], *got[1], got[2]],
+                        [want[0], *want[1], want[2]]):
+            w = np.asarray(w)
+            assert g.numpy().dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g.numpy(), w)
+        return got
+
+    def test_values_in_a_million(self, rng):
+        n = 6000
+        k = rng.integers(10, 200, n).astype(np.int32)
+        v = rng.integers(-(10**6), 10**6, n).astype(np.int32)
+        self._check(k, [v], n, 10, 191)
+
+    def test_mask_and_n_valid(self, rng):
+        n = 3000
+        k = rng.integers(0, 50, n).astype(np.int32)
+        mask = rng.random(n) < 0.5
+        counts, _sums, _axis = self._check(k, [np.ones(n, np.int32)], 2000,
+                                           0, 50, mask)
+        np.testing.assert_array_equal(
+            counts.numpy(), np.bincount(k[:2000][mask[:2000]], minlength=50))
+
+    def test_int32_sum_wraps_to_zero(self):
+        _c, sums, _a = self._check(np.zeros(4, np.int32),
+                                   [np.full(4, 2**30, np.int32)], 4, 0, 1)
+        assert int(sums[0][0]) == 0          # 4 * 2^30 = 2^32 ≡ 0
+
+    def test_span_one(self, rng):
+        n = 5000
+        k = rng.integers(3, 6, n).astype(np.int32)       # keys 4, 5 excluded
+        self._check(k, [rng.integers(-99, 99, n).astype(np.int32)], n, 3, 1)
+
+    def test_two_sum_columns_and_negative_keys(self, rng):
+        n = 4000
+        k = rng.integers(-40, 40, n).astype(np.int32)
+        a = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+        b = rng.integers(0, 9, n).astype(np.int32)
+        self._check(k, [a, b], n - 7, -30, 1024, rng.random(n) < 0.7)
+
+    def test_applicability(self):
+        assert matmul_agg.matmul_agg_applicable(["sum", "count"], 1000)
+        assert not matmul_agg.matmul_agg_applicable(["max"], 1000)
+        assert not matmul_agg.matmul_agg_applicable(["sum"], 10**6)
+        assert matmul_agg.MAX_KEY_SPAN == 16384
+        assert matmul_agg.KEY_TILE == 1024
+
+    def test_wrapper_takes_plain_version_on_cpu(self, rng):
+        n = 2000
+        k = _t(rng.integers(0, 64, n).astype(np.int32))
+        v = _t(rng.integers(-9, 9, n).astype(np.int32))
+        before = matmul_agg.LAUNCHES
+        got = matmul_agg.onehot_groupby_sums(k, [v], _nv(n), 0, 64)
+        ref = matmul_agg.onehot_groupby_sums_reference(k, [v], _nv(n), 0, 64)
+        assert matmul_agg.LAUNCHES == before
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1][0],
+                                                            ref[1][0])
+
+    @pytest.mark.parametrize("bad", ["key", "value", "key_min", "span",
+                                     "mask", "device"])
+    def test_wrapper_rejects(self, bad):
+        k = torch.zeros(8, dtype=torch.int32)
+        cols, kmin, span, mask = [torch.zeros(8, dtype=torch.int32)], 0, 4, None
+        if bad == "key":
+            k = k.to(torch.float32)
+        elif bad == "value":
+            cols = [torch.zeros(7, dtype=torch.int32)]
+        elif bad == "key_min":
+            kmin = torch.tensor(0)
+        elif bad == "span":
+            span = 0
+        elif bad == "mask":
+            mask = torch.ones(8, dtype=torch.int32)
+        else:
+            k = torch.zeros(8, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            matmul_agg.onehot_groupby_sums(k, cols, _nv(8), kmin, span,
+                                           mask=mask)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from harkdb_tpu.columnar.batch import ColumnBatch as JBatch
 from harkdb_tpu.ops.groupby import groupby_batch as jax_groupby_batch
+import harkdb_tpu.ops.join as JJ
 from harkdb_tpu.ops.sort import (
     sort_batch as jax_sort_batch, sort_permutation as jax_sort_permutation,
 )
@@ -28,6 +29,7 @@ from harkdb_tpu.sql.ast_nodes import BinOp as JBinOp
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch as TBatch
 from harkdb_tpu_torch.ops.groupby import groupby_batch
+from harkdb_tpu_torch.ops import join as TJ
 from harkdb_tpu_torch.ops.sort import sort_batch, sort_permutation
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.expr import eval_expr
@@ -337,3 +339,239 @@ class TestDoublingScan:
             got = doubling_segmented_scan(top, torch.from_numpy(sid),
                                           torch.from_numpy(v)).numpy()
             np.testing.assert_array_equal(got, want)
+
+
+# -- joins (ops/join.py) -------------------------------------------------------
+
+def _live_equal(a, b, n, what):
+    a = np.asarray(a)[:n]
+    b = b.numpy()[:n]
+    assert a.dtype == b.dtype, (what, a.dtype, b.dtype)
+    if a.dtype.kind == "f":
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=0, equal_nan=True,
+                                   err_msg=what)
+    else:
+        np.testing.assert_array_equal(b, a, err_msg=what)
+
+
+def _assert_ranges_equal(j, t):
+    """Every JoinRanges field, on live entries (rows past the live counts
+    are unspecified on the kernel paths)."""
+    for name in ("n_lefts", "total", "total_left"):
+        assert int(getattr(t, name)) == int(getattr(j, name)), name
+        assert getattr(t, name).dtype == torch.int32, name
+    nlv = int(j.n_lefts)
+    for name in ("l_orig", "counts", "lo"):
+        _live_equal(getattr(j, name), getattr(t, name), nlv, name)
+    for i, (a, b) in enumerate(zip(j.l_payload, t.l_payload)):
+        _live_equal(a, b, nlv, f"l_payload[{i}]")
+    assert float(t.total_approx) == float(j.total_approx)
+    if j.total_full is None:
+        assert t.total_full is None and t.r_matched is None
+    else:
+        assert int(t.total_full) == int(j.total_full)
+
+
+def _join_inputs(rng, nl, nr, nkeys, span, n_l, n_r):
+    lk = [rng.integers(0, span, nl).astype(np.int32) for _ in range(nkeys)]
+    rk = [rng.integers(0, span, nr).astype(np.int32) for _ in range(nkeys)]
+    lc = [rng.integers(-10**6, 10**6, nl).astype(np.int32),
+          rng.standard_normal(nl).astype(np.float32)]
+    rc = [rng.integers(-10**6, 10**6, nr).astype(np.int32)]
+    return lk, rk, lc, rc
+
+
+class TestJoinRanges:
+    @pytest.mark.parametrize("nkeys", [1, 3])
+    @pytest.mark.parametrize("nulls", [False, True])
+    @pytest.mark.parametrize("need_full", [False, True])
+    def test_vs_jax(self, nkeys, nulls, need_full):
+        rng = np.random.default_rng(nkeys * 10 + nulls * 2 + need_full)
+        nl, nr, n_l, n_r = 3000, 700, 2900, 650
+        lk, rk, lc, rc = _join_inputs(rng, nl, nr, nkeys,
+                                      60 if nkeys == 1 else 5, n_l, n_r)
+        l_null = rng.random(nl) < 0.1 if nulls else None
+        r_null = rng.random(nr) < 0.1 if nulls else None
+        j = JJ.compute_join_ranges(
+            [jnp.asarray(k) for k in lk], jnp.int32(n_l),
+            [jnp.asarray(k) for k in rk], jnp.int32(n_r),
+            l_cols=[jnp.asarray(c) for c in lc],
+            r_cols=[jnp.asarray(c) for c in rc],
+            l_null=None if l_null is None else jnp.asarray(l_null),
+            r_null=None if r_null is None else jnp.asarray(r_null),
+            need_full=need_full,
+        )
+        t = TJ.compute_join_ranges(
+            [torch.from_numpy(k) for k in lk], torch.tensor(n_l, dtype=torch.int32),
+            [torch.from_numpy(k) for k in rk], torch.tensor(n_r, dtype=torch.int32),
+            l_cols=[torch.from_numpy(c) for c in lc],
+            r_cols=[torch.from_numpy(c) for c in rc],
+            l_null=None if l_null is None else torch.from_numpy(l_null),
+            r_null=None if r_null is None else torch.from_numpy(r_null),
+            need_full=need_full,
+        )
+        _assert_ranges_equal(j, t)
+        # live right rows: the right split keeps the live (non-pad) rights
+        n_rights = n_r
+        _live_equal(j.r_orig, t.r_orig, n_rights, "r_orig")
+        for i, (a, b) in enumerate(zip(j.r_payload, t.r_payload)):
+            _live_equal(a, b, n_rights, f"r_payload[{i}]")
+        if need_full:
+            np.testing.assert_array_equal(t.r_matched.numpy(),
+                                          np.asarray(j.r_matched))
+
+    def test_key_traps(self, rng):
+        """INT32_MAX keys collide with the pads' fill; float keys carry
+        -0.0 (equal to 0.0) and NaN (matches nothing)."""
+        hi = np.iinfo(np.int32).max
+        lk = np.array([hi, 1, hi, 5, 0], np.int32)
+        rk = np.array([hi, hi, 5, 7], np.int32)
+        fl = np.array([0.0, -0.0, np.nan, 1.5, np.inf], np.float32)
+        fr = np.array([-0.0, np.nan, np.inf, 1.5], np.float32)
+        for a, b in ((lk, rk), (fl, fr)):
+            j = JJ.compute_join_ranges(
+                jnp.asarray(np.resize(a, 8)), jnp.int32(len(a)),
+                jnp.asarray(np.resize(b, 8)), jnp.int32(len(b)),
+                l_cols=[jnp.arange(8, dtype=jnp.int32)], need_full=True)
+            t = TJ.compute_join_ranges(
+                torch.from_numpy(np.resize(a, 8)),
+                torch.tensor(len(a), dtype=torch.int32),
+                torch.from_numpy(np.resize(b, 8)),
+                torch.tensor(len(b), dtype=torch.int32),
+                l_cols=[torch.arange(8, dtype=torch.int32)], need_full=True)
+            _assert_ranges_equal(j, t)
+
+    def test_join_match_count(self, rng):
+        lk = rng.integers(0, 30, 500).astype(np.int32)
+        rk = rng.integers(0, 40, 300).astype(np.int32)
+        for kind in ("inner", "left", "full"):
+            j = JJ.join_match_count(jnp.asarray(lk), jnp.int32(480),
+                                    jnp.asarray(rk), jnp.int32(290), kind)
+            t = TJ.join_match_count(
+                torch.from_numpy(lk), torch.tensor(480, dtype=torch.int32),
+                torch.from_numpy(rk), torch.tensor(290, dtype=torch.int32),
+                kind)
+            assert int(t) == int(j), kind
+
+
+def _both_jax_paths(fn):
+    """``fn()`` on the JAX package as it runs on the CPU by default, then
+    with its kernel expand path forced (interpret mode)."""
+    try:
+        JJ._FORCE_KERNEL_EXPAND = False
+        ref = fn()
+        JJ._FORCE_KERNEL_EXPAND = True
+        kern = fn()
+    finally:
+        JJ._FORCE_KERNEL_EXPAND = None
+    return ref, kern
+
+
+class TestJoinMaterialize:
+    @pytest.mark.parametrize("kind", ["inner", "left"])
+    def test_join_indices(self, rng, kind):
+        nl, nr, cap = 3000, 500, 1 << 15
+        lk = rng.integers(0, 400, nl).astype(np.int32)
+        rk = rng.integers(0, 400, nr).astype(np.int32)
+        jouts = _both_jax_paths(lambda: JJ.join_indices(
+            jnp.asarray(lk), jnp.int32(2500), jnp.asarray(rk),
+            jnp.int32(450), cap, kind))
+        t = TJ.join_indices(
+            torch.from_numpy(lk), torch.tensor(2500, dtype=torch.int32),
+            torch.from_numpy(rk), torch.tensor(450, dtype=torch.int32),
+            cap, kind)
+        for j in jouts:
+            n = int(j[3])
+            assert int(t[3]) == n
+            for a, b, what in zip(j[:3], t[:3], ("l", "r", "matched")):
+                _live_equal(a, b, n, what)
+
+    @pytest.mark.parametrize("kind", ["inner", "left", "full"])
+    def test_join_batches(self, rng, kind):
+        nl, nr, cap = 2000, 300, 1 << 15
+        arrays_l = {"k": rng.integers(0, 150, nl).astype(np.int32),
+                    "a": rng.integers(0, 10**6, nl).astype(np.int32),
+                    "f": rng.standard_normal(nl).astype(np.float32)}
+        arrays_r = {"j": rng.integers(0, 150, nr).astype(np.int32),
+                    "b": rng.integers(0, 10**6, nr).astype(np.int32)}
+        jl, tl = _batches(arrays_l, 1900)
+        jr, tr = _batches(arrays_r, 280)
+        extra = dict(matched_out="#m", l_matched_out="#lm")
+        jouts = _both_jax_paths(lambda: JJ.join_batches(
+            jl, jr, "k", "j", cap, kind=kind, **extra))
+        t = TJ.join_batches(tl, tr, "k", "j", cap, kind=kind, **extra)
+        for j in jouts:
+            assert t.names == j.names
+            _assert_live_equal(j, t)
+
+    def test_empty_and_tiny(self):
+        lk = np.array([5, 7, 9], np.int32)
+        rk = np.array([7], np.int32)
+
+        def both(n_l, n_r):
+            jouts = _both_jax_paths(lambda: JJ.join_indices(
+                jnp.asarray(lk), jnp.int32(n_l), jnp.asarray(rk),
+                jnp.int32(n_r), 128, "inner"))
+            t = TJ.join_indices(
+                torch.from_numpy(lk), torch.tensor(n_l, dtype=torch.int32),
+                torch.from_numpy(rk), torch.tensor(n_r, dtype=torch.int32),
+                128, "inner")
+            for j in jouts:
+                assert int(t[3]) == int(j[3])
+                for a, b in zip(j[:3], t[:3]):
+                    _live_equal(a, b, int(j[3]), "tiny")
+            return t
+
+        l, r, _m, t = both(3, 1)
+        assert int(t) == 1 and int(l[0]) == 1 and int(r[0]) == 0
+        assert int(both(0, 0)[3]) == 0
+
+    def test_inner_join_indices(self, rng):
+        lk = rng.integers(0, 40, 200).astype(np.int32)
+        rk = rng.integers(0, 40, 150).astype(np.int32)
+        j = JJ.inner_join_indices(jnp.asarray(lk), jnp.int32(200),
+                                  jnp.asarray(rk), jnp.int32(150), 2048)
+        t = TJ.inner_join_indices(
+            torch.from_numpy(lk), torch.tensor(200, dtype=torch.int32),
+            torch.from_numpy(rk), torch.tensor(150, dtype=torch.int32), 2048)
+        n = int(j[2])
+        assert int(t[2]) == n
+        _live_equal(j[0], t[0], n, "l")
+        _live_equal(j[1], t[1], n, "r")
+
+    def test_column_order_left_then_right(self):
+        left = TBatch.from_numpy({"a": np.array([1, 2], np.int32),
+                                  "b": np.array([10, 20], np.int32)},
+                                 capacity=8)
+        right = TBatch.from_numpy({"c": np.array([2, 1], np.int32),
+                                   "d": np.array([200, 100], np.int32)},
+                                  capacity=8)
+        out = TJ.join_batches(left, right, "a", "c", out_capacity=8)
+        assert out.names == ["a", "b", "c", "d"]
+        mat, _ = out.to_numpy()
+        np.testing.assert_array_equal(mat, [[1, 10, 1, 100], [2, 20, 2, 200]])
+
+    def test_precomputed_ranges_need_outputs(self):
+        jl = JBatch.from_numpy({"a": np.array([1, 2], np.int32)}, capacity=4)
+        jr = JBatch.from_numpy({"c": np.array([2, 1], np.int32)}, capacity=4)
+        jrng = JJ.compute_join_ranges(
+            jl.column("a"), jl.n_valid, jr.column("c"), jr.n_valid,
+            l_cols=[jl.column("a")], r_cols=[jr.column("c")])
+        left = TBatch.from_numpy({"a": np.array([1, 2], np.int32)},
+                                 capacity=4)
+        right = TBatch.from_numpy({"c": np.array([2, 1], np.int32)},
+                                  capacity=4)
+        trng = TJ.compute_join_ranges(
+            left.column("a"), left.n_valid, right.column("c"), right.n_valid,
+            l_cols=[left.column("a")], r_cols=[right.column("c")])
+        with pytest.raises(ValueError) as ej:
+            JJ.join_batches(None, None, "a", "c", 4, ranges=jrng)
+        with pytest.raises(ValueError) as et:
+            TJ.join_batches(None, None, "a", "c", 4, ranges=trng)
+        assert str(et.value) == str(ej.value)
+        out = TJ.join_batches(None, None, "a", "c", 4, {"a": "a"},
+                              {"c": "c"}, ranges=trng)
+        np.testing.assert_array_equal(out.to_numpy()[0], [[1, 1], [2, 2]])
+        with pytest.raises(ValueError, match="need_full=True"):
+            TJ.join_batches(None, None, "a", "c", 4, {"a": "a"}, {"c": "c"},
+                            kind="full", ranges=trng)

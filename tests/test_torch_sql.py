@@ -3,10 +3,13 @@
 The same SQL runs through ``harkdb_tpu.Context`` (JAX on the CPU) and
 ``harkdb_tpu_torch.Context(device="cpu")`` over the same tables: the main
 query of the port's slice, the single-table corpus of tests/test_sql.py,
-error texts (compared verbatim), the features the port does not run yet
-(each raises PlanError naming itself), the two routes that carry the JAX
-package's tables over, and the import boundary (no jax). Integer outputs
-must be bit-identical; float32 outputs use rtol=1e-6, atol=0.
+the star join and the dense-key GROUP BY (rows and plan fields), TPC-H
+Q3's shape, ``explain`` of a 3-way join, error texts (compared verbatim),
+the features the port does not run yet (each raises PlanError naming
+itself), the two routes that carry the JAX package's tables over, and the
+import boundary (no jax). Integer outputs must be bit-identical; float32
+outputs use rtol=1e-6, atol=0. The join / NULL corpus is
+tests/test_torch_joins.py.
 """
 
 import os
@@ -124,6 +127,8 @@ CORPUS = [
     "where k < 20 order by v desc, f limit 30",
     "select distinct name from dup order by name desc",
     "select k, v from dup where 1 = 1 order by v limit 10 offset 5",
+    # a join over the corpus tables
+    "select t.k, t2.w from t join t2 on t.k = t2.k",
 ]
 
 
@@ -144,6 +149,10 @@ ERRORS = [
     "select k, sum(sum(v)) from t group by k",
     "select k + 'x' from t",
     "selec a from t",
+    "select t.k from t join t on t.k = t.k",
+    "select t.k from t join t2 on t.k = t.w",
+    "select t.k from t join dup on t.k = dup.name",
+    "select t.k from t left join t2 on t.k = t2.k and t.v < t2.w",
 ]
 
 
@@ -159,7 +168,6 @@ def test_error_text_matches_jax(contexts, query):
 
 
 UNPORTED = [
-    ("select t.k, t2.w from t join t2 on t.k = t2.k", "JOIN"),
     ("select k, rank() over (order by v) from t", "Window functions"),
     ("select k from t union select k from t2", "UNION/INTERSECT/EXCEPT"),
     ("with a as (select k from t) select k from a",
@@ -174,6 +182,8 @@ UNPORTED = [
      "IN/EXISTS/scalar subqueries"),
     ("select v from t where v > (select avg(w) from t2 where t2.k = t.k)",
      "IN/EXISTS/scalar subqueries"),
+    ("select t.k from t join (select k from t2) d on t.k = d.k",
+     "Derived tables, CTEs and views"),
 ]
 
 
@@ -201,6 +211,174 @@ def test_explain_and_plan_cache(contexts):
     assert p.explain(q) == j.explain(q)
     assert p._plan(q) is p._plan(q)
     assert p.explain(MAIN_QUERY) == j.explain(MAIN_QUERY)
+
+
+def test_join_total_overflow_guard():
+    """A 65536² CROSS JOIN's int32 pair total wraps to exactly 0: both
+    packages raise the same PlanError before materializing anything."""
+    j = harkdb_tpu.Context()
+    p = harkdb_tpu_torch.Context(device="cpu")
+    n = 65536
+    for c in (j, p):
+        c.create_table("a", {"x": np.zeros(n, np.int32)})
+        c.create_table("b", {"y": np.zeros(n, np.int32)})
+    q = "select count(*) from a cross join b"
+    with pytest.raises(Exception) as ej:
+        j.sql(q)
+    with pytest.raises(PlanError) as ep:
+        p.sql(q)
+    assert str(ep.value) == str(ej.value)
+    assert "pairs" in str(ep.value)
+
+
+# -- the star join, the dense-key GROUP BY and TPC-H Q3 ------------------------
+
+STAR_QUERY = ("select g, sum(v) as s, count(*) as c from facts join dims "
+              "on facts.k = dims.j where v > 0 group by g order by g")
+PLAN_FIELDS = ("fast_agg", "fast_candidate", "last_fast_span", "_probed_fast")
+
+
+def _pair(tables):
+    j = harkdb_tpu.Context()
+    p = harkdb_tpu_torch.Context(device="cpu")
+    for name, src in tables.items():
+        j.create_table(name, src)
+        p.create_table(name, src)
+    return j, p
+
+
+def _assert_plan_parity(j, p, q):
+    """Rows, then the dense-path plan fields, then a second run that must
+    reuse the probe cached on the plan."""
+    _assert_same(j.sql(q), p.sql(q), q)
+    pj, pp = j._plan(q), p._plan(q)
+    for f in PLAN_FIELDS:
+        assert getattr(pp, f) == getattr(pj, f), (f, q)
+    probed = pp._probed_fast
+    _assert_same(j.sql(q), p.sql(q), q)
+    assert pp._probed_fast is probed
+    pd.testing.assert_frame_equal(p.sql_df(q), j.sql_df(q),
+                                  check_dtype=False, rtol=1e-6)
+    return pp
+
+
+def test_star_join_small():
+    """The chip_smoke star join at 6,000 facts: a permutation dims table
+    (every fact key matches once), the dense GROUP BY over span 64."""
+    rng = np.random.default_rng(0)
+    n, nk = 6000, 1024
+    facts = {"k": rng.integers(0, nk, n).astype(np.int32),
+             "v": rng.integers(-1000, 1000, n).astype(np.int32)}
+    dims = {"j": rng.permutation(nk).astype(np.int32),
+            "g": rng.integers(0, 64, nk).astype(np.int32)}
+    j, p = _pair({"facts": facts, "dims": dims})
+    plan = _assert_plan_parity(j, p, STAR_QUERY)
+    assert plan.fast_agg is None and plan.fast_candidate == "dims.g"
+    assert plan.last_fast_span == 1024       # span 64, padded to KEY_TILE
+
+
+def _fast_tables():
+    """tests/test_kernels.py TestPlannerFastPath's tables (rng seed 0)."""
+    rng = np.random.default_rng(0)
+    n = 4000
+    t = pd.DataFrame({"k": rng.integers(0, 64, n).astype(np.int32),
+                      "v": rng.integers(-1000, 1000, n).astype(np.int32)})
+    t2 = pd.DataFrame({"k": rng.integers(0, 32, 2000).astype(np.int32),
+                       "v": rng.integers(0, 100, 2000).astype(np.int32)})
+    n = 3000
+    facts = pd.DataFrame({"k": rng.integers(0, 40, n).astype(np.int32),
+                          "v": rng.integers(-50, 50, n).astype(np.int32)})
+    dims = pd.DataFrame({"j": np.arange(40, dtype=np.int32),
+                         "m": rng.integers(1, 5, 40).astype(np.int32)})
+    k = np.concatenate([rng.integers(0, 30, 2000),
+                        np.array([10**8])]).astype(np.int32)
+    narrow = pd.DataFrame({"k": k, "v": rng.integers(0, 9, k.size).astype(
+        np.int32)})
+    return {
+        "t": t, "t2": t2, "facts": facts, "dims": dims, "narrow": narrow,
+        "seq": pd.DataFrame({"k": np.arange(10, dtype=np.int32),
+                             "v": np.arange(10, dtype=np.int32)}),
+        "wide": pd.DataFrame({"k": np.int32([0, 10**8]),
+                              "v": np.int32([1, 2])}),
+        "one": pd.DataFrame({"k": np.int32([5]), "v": np.int32([1])}),
+        "miss": pd.DataFrame({"j": np.int32([9]), "m": np.int32([1])}),
+    }
+
+
+FAST_PATH = [
+    # (query, dense path proven at plan time, dense path taken)
+    ("select k, sum(v), count(*) from t group by k", True, True),
+    ("select k, avg(v) from t2 where v > 10 group by k "
+     "having count(*) > 20 order by k desc", True, True),
+    ("select k, max(v) from seq group by k", False, False),
+    ("select k, sum(v) from wide group by k", False, False),
+    ("select k, sum(v), count(*) from facts join dims on facts.k = dims.j "
+     "where v > 0 group by k order by k", False, True),
+    ("select k, sum(v) from narrow where k < 1000 group by k", False, True),
+    ("select k, sum(v) from one join miss on one.k = miss.j group by k",
+     False, False),
+]
+
+
+@pytest.fixture(scope="module")
+def fast_contexts():
+    return _pair(_fast_tables())
+
+
+@pytest.mark.parametrize("query,proven,taken", FAST_PATH)
+def test_dense_path_plan_matches_jax(fast_contexts, query, proven, taken):
+    j, p = fast_contexts
+    plan = _assert_plan_parity(j, p, query)
+    assert (plan.fast_agg is not None) == proven
+    assert (plan.last_fast_span is not None) == taken
+
+
+def _tpch_tables():
+    """tests/test_tpch_mini.py's tables (rng seed 42)."""
+    rng = np.random.default_rng(42)
+    n_li, n_ord, n_cust = 3000, 800, 120
+    orders = pd.DataFrame({
+        "orderkey": np.arange(n_ord, dtype=np.int32),
+        "custkey": rng.integers(0, n_cust + 20, n_ord).astype(np.int32),
+        "odate": rng.integers(0, 365, n_ord).astype(np.int32),
+        "prio": rng.integers(1, 6, n_ord).astype(np.int32),
+    })
+    lineitem = pd.DataFrame({
+        "orderkey": rng.integers(0, n_ord, n_li).astype(np.int32),
+        "partkey": rng.integers(0, 200, n_li).astype(np.int32),
+        "qty": rng.integers(1, 50, n_li).astype(np.int32),
+        "price": rng.integers(100, 10000, n_li).astype(np.int32),
+        "discount": rng.integers(0, 10, n_li).astype(np.int32),
+        "ship": rng.integers(0, 365, n_li).astype(np.int32),
+    })
+    customer = pd.DataFrame({
+        "custkey": np.arange(n_cust, dtype=np.int32),
+        "nation": rng.integers(0, 25, n_cust).astype(np.int32),
+    })
+    return {"lineitem": lineitem, "orders": orders, "customer": customer}
+
+
+Q3_QUERY = (
+    "select orders.orderkey, sum(lineitem.price * lineitem.qty) as rev "
+    "from customer join orders on customer.custkey = orders.custkey "
+    "join lineitem on orders.orderkey = lineitem.orderkey "
+    "where customer.nation < 10 and orders.odate < 180 "
+    "group by orders.orderkey order by rev desc, orders.orderkey "
+    "limit 10"
+)
+
+
+def test_q3_shipping_priority_and_explain():
+    j, p = _pair(_tpch_tables())
+    _assert_plan_parity(j, p, Q3_QUERY)
+    assert p.explain(Q3_QUERY) == j.explain(Q3_QUERY)
+    assert "SortJoin(inner) orders.orderkey = lineitem.orderkey " \
+           "(+ lineitem)" in p.explain(Q3_QUERY)
+    q = ("select customer.nation, count(*) as n from customer "
+         "left join orders on customer.custkey = orders.custkey "
+         "full outer join lineitem on orders.orderkey = lineitem.orderkey "
+         "where lineitem.qty > 10 group by customer.nation")
+    assert p.explain(q) == j.explain(q)
 
 
 def test_load_jax_save_directory(tmp_path):
