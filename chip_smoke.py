@@ -15,10 +15,11 @@ Phases, each printing its results on lines of its own:
      and ``-Xptxas -v`` report;
   3. hold each kernel against its plain PyTorch version on the card, on
      edge cases and at the main paths' shapes (kernel A: 16,777,216 rows x
-     2 int32 columns; kernel B: the group-by's 8,388,608-row max scan;
-     kernel D: the star join's 8.4M unit segments into 2^23 slots and
-     Q3's segments of about 4; kernel C: 2^23 rows at span 4096, span
-     16384 with three sum columns, and span 1), all bit-exact;
+     2 int32 columns; kernel B: the group-by's 8,388,608-row max scan, the
+     window query's running sum under the same ids and its running max
+     over one segment; kernel D: the star join's 8.4M unit segments into
+     2^23 slots and Q3's segments of about 4; kernel C: 2^23 rows at span
+     4096, span 16384 with three sum columns, and span 1), all bit-exact;
   4. run the main query through ``Context(device="cuda").sql`` on a
      2^24-row table and check it row for row against an independent numpy
      oracle, with every kernel launch counted;
@@ -27,7 +28,13 @@ Phases, each printing its results on lines of its own:
      span 4096) and TPC-H Q3's shape at scale factor 1 row counts (a 3-way
      join, then a sort-path GROUP BY and a top 10), each against a numpy
      oracle with its kernel launches counted;
-  7. time phases 4-6 end to end (warm-up, then the median of 5), break the
+  7. nested queries: TPC-H Q4 (EXISTS), Q5 (a CTE), Q13 (a derived table
+     over a LEFT JOIN) and Q17 (a correlated scalar subquery) at SF 1 row
+     counts, a window query (row_number, rank and a running sum over about
+     1M partitions) and an INTERSECT on the 2^24-row table, each against a
+     numpy oracle with its kernel launches counted, then timed warm; the
+     window query is profiled;
+  8. time phases 4-6 end to end (warm-up, then the median of 5), break the
      main query and the star join down by device kernel with
      torch.profiler, time each kernel against its plain version with CUDA
      events, and time kernel C against the sort path's group-by at spans
@@ -67,6 +74,42 @@ Q3_QUERY = (
     "group by orders.orderkey order by rev desc, orders.orderkey "
     "limit 10"
 )
+# TPC-H Q4, Q5, Q13 and Q17's shapes, verbatim from tests/test_tpch_mini.py.
+Q4_QUERY = (
+    "select prio, count(*) as n from orders "
+    "where exists (select 1 from lineitem "
+    "where lineitem.orderkey = orders.orderkey and lineitem.qty > 40) "
+    "group by prio order by prio"
+)
+Q5_QUERY = (
+    "with rev as (select orders.custkey as ck, "
+    "sum(lineitem.price * lineitem.qty) as r from orders "
+    "join lineitem on orders.orderkey = lineitem.orderkey "
+    "group by orders.custkey) "
+    "select customer.nation, sum(rev.r) as vol from customer "
+    "join rev on customer.custkey = rev.ck "
+    "group by customer.nation having sum(rev.r) > 0 "
+    "order by vol desc, customer.nation limit 8"
+)
+Q13_QUERY = (
+    "select cnt, count(*) as custs from "
+    "(select customer.custkey as k, count(orders.orderkey) as cnt "
+    "from customer left join orders "
+    "on customer.custkey = orders.custkey group by customer.custkey) d "
+    "group by cnt order by custs desc, cnt limit 10"
+)
+Q17_QUERY = (
+    "select sum(price) as total from lineitem l "
+    "where l.qty < (select avg(l2.qty) from lineitem l2 "
+    "where l2.partkey = l.partkey)"
+)
+WINDOW_QUERY = (
+    "select k, v, row_number() over (partition by k order by v) as rn, "
+    "rank() over (partition by k order by v) as rk, "
+    "sum(v) over (partition by k order by v) as rs from t where v > 0"
+)
+SETOP_QUERY = ("select k from t where v > 900 intersect "
+               "select k from t where v < -900 order by k")
 N_MAIN = 1 << 24
 N_LARGE = 100_000_000
 N_KEYS = 1 << 20
@@ -526,16 +569,120 @@ def q3_oracle(t) -> np.ndarray:
     return np.stack([keys[order], rev[keys][order]], axis=1).astype(np.int32)
 
 
-def run_join_check(torch, H, counters, tables, query, expect, need, name):
-    """Run ``query`` through Context(device="cuda").sql with every launch
-    count set to 0 just before; check it against ``expect`` and that each
-    kernel in ``need`` launched at least that often."""
+# -- phase 7 oracles: nested queries ------------------------------------------
+# q3_data's keys are row positions: orders.orderkey and customer.custkey are
+# aranges, so a key indexes its table directly.
+
+def wrap32(x) -> np.ndarray:
+    """Exact integers (int64, or float64 below 2^53) wrapped to int32 as
+    the engine's int32 sums wrap."""
+    x = np.asarray(x).astype(np.int64)
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+def q4_oracle(t) -> np.ndarray:
+    """Q4: orders with a line of qty > 40, counted by prio."""
+    o, li = t["orders"], t["lineitem"]
+    has = np.zeros(o["orderkey"].shape[0], bool)
+    has[li["orderkey"][li["qty"] > 40]] = True
+    counts = np.bincount(o["prio"][has])
+    prios = np.flatnonzero(counts)
+    return np.stack([prios, counts[prios]], axis=1).astype(np.int32)
+
+
+def q5_oracle(t) -> np.ndarray:
+    """Q5: revenue per customer (the CTE; customers without a line are not
+    in it), summed per nation of the customers that exist, wrapped to int32
+    before HAVING > 0; vol desc, nation; top 8."""
+    o, li, cu = t["orders"], t["lineitem"], t["customer"]
+    ck = o["custkey"][li["orderkey"]]
+    n_ck = int(o["custkey"].max()) + 1
+    r = wrap32(np.bincount(ck, weights=li["price"].astype(np.int64)
+                           * li["qty"], minlength=n_ck))
+    in_rev = np.bincount(ck, minlength=n_ck) > 0
+    cks = cu["custkey"]
+    m = in_rev[cks]                        # every custkey is < n_ck here
+    nation = cu["nation"][m]
+    n_nat = int(cu["nation"].max()) + 1
+    vol = wrap32(np.bincount(nation, weights=r[cks[m]].astype(np.int64),
+                             minlength=n_nat))
+    nats = np.flatnonzero((np.bincount(nation, minlength=n_nat) > 0)
+                          & (vol > 0))
+    order = np.lexsort((nats, -vol[nats].astype(np.int64)))[:8]
+    return np.stack([nats[order], vol[nats][order]], axis=1).astype(np.int32)
+
+
+def q13_oracle(t) -> np.ndarray:
+    """Q13: orders per customer (0 for a customer without one), then
+    customers per count; custs desc, cnt; top 10."""
+    ck, n_cust = t["orders"]["custkey"], t["customer"]["custkey"].shape[0]
+    cnt = np.bincount(ck[ck < n_cust], minlength=n_cust)
+    custs = np.bincount(cnt)
+    vals = np.flatnonzero(custs)
+    order = np.lexsort((vals, -custs[vals]))[:10]
+    return np.stack([vals[order], custs[vals][order]], axis=1).astype(
+        np.int32)
+
+
+def q17_oracle(t) -> np.ndarray:
+    """Q17: sum(price) of the lines whose qty is below their part's average
+    qty, the average float32(sum) / float32(count) as the engine computes
+    it; the sum wrapped to int32."""
+    li = t["lineitem"]
+    pk = li["partkey"]
+    s = np.bincount(pk, weights=li["qty"].astype(np.int64))
+    c = np.bincount(pk)
+    avg = np.zeros(c.shape[0], np.float32)
+    avg[c > 0] = (s[c > 0].astype(np.float32)
+                  / c[c > 0].astype(np.float32))
+    keep = li["qty"].astype(np.float32) < avg[pk]
+    return wrap32([[li["price"][keep].astype(np.int64).sum()]])
+
+
+def window_oracle(k, v) -> np.ndarray:
+    """The window query: rows of ``v > 0`` in table order with their
+    row_number, rank and running sum (the default RANGE frame, so peers
+    with an equal v share the sum) within partition k ordered by v, ties
+    by table position."""
+    keep = v > 0
+    ks, vs = k[keep], v[keep]
+    n = ks.shape[0]
+    order = np.lexsort((vs, ks))                  # stable: ties by position
+    sk, sv = ks[order], vs[order]
+    idx = np.arange(n)
+    p_start = np.r_[True, sk[1:] != sk[:-1]]
+    t_start = p_start | np.r_[True, sv[1:] != sv[:-1]]
+    first_p = np.maximum.accumulate(np.where(p_start, idx, 0))
+    first_t = np.maximum.accumulate(np.where(t_start, idx, 0))
+    cum = np.cumsum(sv.astype(np.int64))
+    run_sum = cum - (cum - sv)[first_p]
+    t_end = np.r_[np.flatnonzero(t_start)[1:], n] - 1
+    peer_last = t_end[np.cumsum(t_start) - 1]
+    out = np.empty((n, 5), np.int32)
+    out[order] = np.stack([sk, sv, idx - first_p + 1, first_t - first_p + 1,
+                           wrap32(run_sum[peer_last])], axis=1)
+    return out
+
+
+def setop_oracle(k, v) -> np.ndarray:
+    return np.intersect1d(k[v > 900], k[v < -900])[:, None].astype(np.int32)
+
+
+def load_context(torch, H, tables):
+    """A ``Context(device="cuda")`` holding ``tables``; and the seconds the
+    load took."""
     ctx = H.Context(device="cuda")
     t0 = time.perf_counter()
     for tname, cols in tables.items():
         ctx.create_table(tname, cols)
     torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    return ctx, time.perf_counter() - t0
+
+
+def check_query(ctx, counters, query, expect, need, name):
+    """Run ``query`` through ``ctx.sql`` with every launch count set to 0
+    just before; check it against ``expect`` and that each kernel in
+    ``need`` launched at least that often. Returns the launch counts."""
     for mod in counters.values():
         mod.LAUNCHES = 0
     got = ctx.sql(query)
@@ -548,8 +695,15 @@ def run_join_check(torch, H, counters, tables, query, expect, need, name):
         raise AssertionError(f"{name} skipped a kernel (launched, needed): "
                              f"{short}")
     log(f"{name}: {got.shape[0]:,} rows equal the numpy oracle; launches "
-        f"{launches}; tables load {load_s:.2f} s")
-    return ctx, launches
+        f"{launches}")
+    return launches
+
+
+def run_join_check(torch, H, counters, tables, query, expect, need, name):
+    """Load ``tables`` into a new Context and run :func:`check_query`."""
+    ctx, load_s = load_context(torch, H, tables)
+    log(f"{name}: tables load {load_s:.2f} s")
+    return ctx, check_query(ctx, counters, query, expect, need, name)
 
 
 def time_cuda(torch, fn, iters=20, warmup=3):
@@ -566,13 +720,17 @@ def time_cuda(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def time_query(torch, ctx, query, reps=5):
-    ctx.sql(query)                                     # warm-up
+def time_query(torch, ctx, query, reps=5, run=None):
+    """Warm-up, then the median of ``reps`` timed calls of ``run`` (by
+    default ``ctx.sql``, which returns numpy) ending synchronised."""
+    run = ctx.sql if run is None else run
+    run(query)                                         # warm-up
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ctx.sql(query)                                 # returns numpy: syncs
+        run(query)
+        torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), times
 
@@ -631,6 +789,62 @@ def profile_query(torch, ctx, query) -> None:
         log(f"  {tot / 1e3:9.3f} ms  x{cnt:<4d} {name[:100]}")
 
 
+def phase_nested(torch, H, counters):
+    """Phase 7: TPC-H Q4, Q5, Q13 and Q17 at SF 1 row counts, the window
+    query and the INTERSECT query on the 2^24-row table, each against its
+    numpy oracle with its launches counted, then timed warm; the window
+    query profiled. Returns ``(query_ms, launches)``."""
+    tpch = q3_data()
+    cases = [
+        ("tpch_q4_sf1", Q4_QUERY, q4_oracle(tpch),
+         {"flat_compact": 1, "onehot_groupby_sums": 1}),
+        ("tpch_q5_sf1", Q5_QUERY, q5_oracle(tpch),
+         {"flat_compact": 1, "expand_fills": 1}),
+        ("tpch_q13_sf1", Q13_QUERY, q13_oracle(tpch),
+         {"flat_compact": 1, "expand_fills": 1}),
+        ("tpch_q17_sf1", Q17_QUERY, q17_oracle(tpch),
+         {"flat_compact": 1, "expand_fills": 1}),
+    ]
+    ctx, load_s = load_context(torch, H, tpch)
+    del tpch
+    log(f"TPC-H tables at SF 1 row counts: load {load_s:.2f} s")
+    query_ms, launches = {}, {}
+    for name, query, expect, need in cases:
+        launches[name] = check_query(ctx, counters, query, expect, need, name)
+    for name, query, _expect, _need in cases:
+        query_ms[name], times = time_query(torch, ctx, query)
+        log(f"{name}: median {query_ms[name]:.3f} ms of {times}")
+    del ctx, cases
+    torch.cuda.empty_cache()
+
+    k_np, v_np = table_data(N_MAIN)
+    cases = [
+        (f"window_{N_MAIN}", WINDOW_QUERY, window_oracle(k_np, v_np),
+         {"flat_compact": 1, "flat_segscan": 2}),
+        (f"intersect_{N_MAIN}", SETOP_QUERY, setop_oracle(k_np, v_np),
+         {"flat_compact": 3}),
+    ]
+    ctx, load_s = load_context(torch, H, {"t": {"k": k_np, "v": v_np}})
+    del k_np, v_np
+    log(f"table t ({N_MAIN:,} rows): load {load_s:.2f} s")
+    for name, query, expect, need in cases:
+        launches[name] = check_query(ctx, counters, query, expect, need, name)
+    for name, query, _expect, _need in cases:
+        query_ms[name], times = time_query(torch, ctx, query)
+        log(f"{name}: median {query_ms[name]:.3f} ms of {times}")
+    # The window query returns 8.4M rows: split its time into the engine's
+    # (sql_batch, the result left on the card) and the readback's.
+    batch_ms, times = time_query(torch, ctx, WINDOW_QUERY,
+                                 run=ctx.sql_batch)
+    log(f"window_{N_MAIN} without the readback (sql_batch, synchronised): "
+        f"median {batch_ms:.3f} ms of {times}")
+    query_ms[f"window_{N_MAIN}_on_card"] = batch_ms
+    profile_query(torch, ctx, WINDOW_QUERY)
+    del ctx, cases
+    torch.cuda.empty_cache()
+    return query_ms, launches
+
+
 def main() -> int:
     import torch
 
@@ -666,10 +880,19 @@ def main() -> int:
     ref_b = segscan.flat_segscan_reference("max", sid, [vals], -2**31)[0]
     torch.cuda.synchronize()
     b_err = int((got_b - ref_b).abs().max())
+    # The window query's shapes: its running sum under the same partition
+    # ids, and a running max over one segment (prims/scan.running_max).
+    one_seg = torch.zeros_like(sid)
+    for op, seg, ne in (("add", sid, 0), ("max", one_seg, -2**31)):
+        got_w = segscan.flat_segscan(op, seg, [vals], ne)[0]
+        ref_w = segscan.flat_segscan_reference(op, seg, [vals], ne)[0]
+        torch.cuda.synchronize()
+        b_err = max(b_err, int((got_w - ref_w).abs().max()))
     if b_err:
-        raise AssertionError("kernel B differs at the main path's shape")
+        raise AssertionError("kernel B differs at the main path's shapes")
     log(f"kernel A at {k.shape[0]:,} rows x 2 int32: bit-exact; kernel B "
-        f"max at {sid.shape[0]:,} rows: bit-exact")
+        f"max and add under the group ids, and max over one segment, at "
+        f"{sid.shape[0]:,} rows: bit-exact")
     phase_kernels_cd(torch, expand, matmul_agg, dev)
     d_star, d_q3, c_main = cd_shapes(torch, dev)
     d_err, c_err, c_one, c_wide = check_cd_main(
@@ -730,7 +953,10 @@ def main() -> int:
     log(f"star join: median {star_ms:.3f} ms of {star_all}")
     log(f"TPC-H Q3: median {q3_ms:.3f} ms of {q3_all}")
 
-    # -- phase 7: kernels against their plain versions, CUDA events --------------
+    # -- phase 7: nested queries, windows and set operations --------------------
+    nested_ms, nested_launches = phase_nested(torch, H, counters)
+
+    # -- phase 8: kernels against their plain versions, CUDA events --------------
     cols = {"k": k, "v": v}
     a_ms = time_cuda(torch, lambda: compact.flat_compact(cols, mask, n_valid))
     a_plain = time_cuda(
@@ -808,9 +1034,10 @@ def main() -> int:
          "launches": star_launches["expand_fills"],
          "max_abs_err": d_err, "ms": d_ms, "plain_ms": d_plain},
     ], "query_ms": {"rows_16777216": main_ms, "rows_100000000": big_ms,
-                    "star_join": star_ms, "tpch_q3_sf1": q3_ms},
+                    "star_join": star_ms, "tpch_q3_sf1": q3_ms, **nested_ms},
         "launches": {"rows_100000000": big_launches,
-                     "star_join": star_launches, "tpch_q3_sf1": q3_launches},
+                     "star_join": star_launches, "tpch_q3_sf1": q3_launches,
+                     **nested_launches},
         "dense_vs_sort_ms": vs_sort}
     log(json.dumps(report))
     log(card_line())

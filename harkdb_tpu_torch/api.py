@@ -66,8 +66,8 @@ class Context:
     # -- views (engine extension: persistent CTEs) -----------------------------
     def create_view(self, name: str, sql_statement: str) -> None:
         """Register a named SELECT as a view. Views substitute at parse
-        time exactly like CTEs (``WITH name AS (...)``); querying one plans
-        it as a derived table, which the torch port does not run yet."""
+        time exactly like CTEs (``WITH name AS (...)``): querying one plans
+        the body as a derived table with one materialization per query."""
         if name in self.tables:
             raise ValueError(f"{name!r} is already a table")
         from harkdb_tpu_torch.sql.parser import parse_sql

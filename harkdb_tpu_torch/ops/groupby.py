@@ -28,6 +28,7 @@ from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.kernels.segscan import flat_segscan
 from harkdb_tpu_torch.ops.sort import lexsort_permutation
 from harkdb_tpu_torch.prims.compaction import compact_arrays
+from harkdb_tpu_torch.prims.scan import running_max, running_min
 
 Tensor = torch.Tensor
 
@@ -227,10 +228,9 @@ def groupby_aggregate(
         forward/backward fills)."""
         cum = torch.cumsum(x_int, 0, dtype=torch.int32)
         excl = cum - x_int
-        base = torch.cummax(torch.where(is_start, excl, 0), 0).values
+        base = running_max(torch.where(is_start, excl, 0))
         big = torch.full((), n + 1, dtype=torch.int32, device=dev)
-        aoa = torch.flip(torch.cummin(torch.flip(
-            torch.where(is_start, excl, big), [0]), 0).values, [0])
+        aoa = running_min(torch.where(is_start, excl, big), reverse=True)
         nxt = torch.minimum(torch.cat([aoa[1:], big[None]]), cum[-1])
         return nxt - base
 
@@ -248,7 +248,7 @@ def groupby_aggregate(
             p2 = lexsort_permutation([dropped] + keys + [col])
             x_s = col[p2]
             row_ok = valid
-        gstart = torch.cummax(torch.where(is_start, idx, 0), 0).values
+        gstart = running_max(torch.where(is_start, idx, 0))
         glen = _run_total(row_ok.to(torch.int32))
         p = idx - gstart                     # valid rows are group-leading
         pos_f = (glen - 1).to(torch.float32) * q

@@ -37,9 +37,9 @@ import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.kernels.expand import expand_fills
-from harkdb_tpu_torch.kernels.segscan import flat_segscan
 from harkdb_tpu_torch.ops.sort import _pad_to_max, lexsort_permutation
 from harkdb_tpu_torch.prims.compaction import compact_arrays
+from harkdb_tpu_torch.prims.scan import running_max, running_min
 
 Tensor = torch.Tensor
 
@@ -73,17 +73,6 @@ class JoinRanges(NamedTuple):
 
 def _i32(v: int, device) -> Tensor:
     return torch.full((), v, dtype=torch.int32, device=device)
-
-
-def _running(op: str, x: Tensor) -> Tensor:
-    """Inclusive running ``max`` or ``min`` of an int32 tensor (``lax.cummax``
-    / ``lax.cummin``): kernel B's scan over one segment on a card.
-    ``torch.cummax`` gives the same values, but on a 1-D CUDA tensor it
-    scans in one thread block (47 ms of the 2^24-fact star join's 56 ms of
-    device time on an H100)."""
-    sid = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
-    neutral = -(1 << 31) if op == "max" else (1 << 31) - 1
-    return flat_segscan(op, sid, [x], neutral)[0]
 
 
 def compute_join_ranges(
@@ -166,7 +155,7 @@ def compute_join_ranges(
     # Base = rights before this run = r_excl at my run's start; r_excl is
     # non-decreasing, so a running max over the run-start values fills it.
     r_excl = r_cum - is_right
-    base = _running("max", torch.where(run_start, r_excl, zero))
+    base = running_max(torch.where(run_start, r_excl, zero))
     rights_in_run_so_far = r_cum - base
 
     # For a LEFT row, every right of its run precedes it → its match count
@@ -189,10 +178,10 @@ def compute_join_ranges(
         il = is_left.to(torch.int32)
         l_cum = torch.cumsum(il, 0, dtype=torch.int32)
         l_excl = l_cum - il
-        lbase = _running("max", torch.where(run_start, l_excl, zero))
+        lbase = running_max(torch.where(run_start, l_excl, zero))
         big = _i32(n + 1, dev)
-        at_or_after = torch.flip(_running("min", torch.flip(
-            torch.where(run_start, l_excl, big), [0])), [0])
+        at_or_after = running_min(torch.where(run_start, l_excl, big),
+                                  reverse=True)
         nxt = torch.cat([at_or_after[1:], big.reshape(1)])
         nxt = torch.minimum(nxt, l_cum[-1])
         total_lefts_in_run = nxt - lbase

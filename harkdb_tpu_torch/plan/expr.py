@@ -198,7 +198,7 @@ def eval_expr(expr, columns: Dict[str, Tensor], capacity: int,
         return eval_expr(expr.expr, columns, capacity, config)
     if isinstance(expr, (SubQuery, InSub)):
         raise ExprError(
-            "Subquery reached the evaluator unresolved — subqueries are "
-            "not supported by the torch port yet"
+            "Subquery reached the evaluator unresolved — planner bug "
+            "(_resolve_subqueries substitutes literals at first execution)"
         )
     raise ExprError(f"Cannot evaluate node {expr!r}")

@@ -28,11 +28,16 @@ Execution model (the JAX planner's, run eagerly — torch needs no jit):
   * ``run_tail``: post-computes, HAVING, projection, DISTINCT, ORDER BY,
     OFFSET and LIMIT.
 
+  * window functions run after WHERE (ungrouped) or after HAVING
+    (grouped) — ``plan/windows.py``;
+  * derived tables / CTEs / views materialize once per plan, lazily
+    (``plan/derived.py``); set operations are ``plan/union_plan.py``.
+
 These readbacks (and the join-total wrap guard) are the only host
-synchronisations before the result is read. Features beyond the slice —
-window functions, set operations, derived tables / CTEs / views, and IN /
-EXISTS / scalar subqueries — raise ``PlanError`` at plan time, naming the
-feature.
+synchronisations before the result is read, apart from those the JAX
+package makes as well: each subquery's result is read back once per plan
+and substituted as literals (``_resolve_subqueries``), and the set-operation
+tail reads its row counts (``UnionPlan``).
 """
 
 from __future__ import annotations
@@ -56,16 +61,14 @@ from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
 from harkdb_tpu_torch.plan.nulls import NullSemantics, valid_mask
 from harkdb_tpu_torch.plan.strings import StringLowering
+from harkdb_tpu_torch.plan.windows import compute_windows
 from harkdb_tpu_torch.prims.compaction import compact_batch
 from harkdb_tpu_torch.sql.ast_nodes import (
     Agg, BinOp, Case, Col, DerivedRef, ExistsSub, InSub, Lit, LutMember,
-    SelectStmt, Star, SubQuery, UnionStmt, UnOp, WindowFn, walk,
+    OrderItem, SelectItem, SelectStmt, Star, SubQuery, UnionStmt, UnOp,
+    WindowFn, walk,
 )
 from harkdb_tpu_torch.sql.parser import parse_sql
-
-
-def _unsupported(feature: str) -> PlanError:
-    return PlanError(f"{feature} is not supported by the torch port yet")
 
 
 def _next_pow2(n: int) -> int:
@@ -111,29 +114,6 @@ def _null_extreme_sub(a, isnull, d: bool, nu):
     return torch.where(isnull, torch.full_like(a, ext), a)
 
 
-def _check_ported(stmt: SelectStmt) -> None:
-    """Raise PlanError naming the first feature outside the torch port's
-    slice. Correlated aggregate subqueries were already rewritten into
-    LEFT JOINs against grouped derived tables (plan/decorrelate.py), so
-    those joins name the subquery they came from."""
-    for j in stmt.joins:
-        if isinstance(j.table, DerivedRef) and j.table.alias.startswith(
-                "#corr"):
-            raise _unsupported("IN/EXISTS/scalar subqueries")
-    if any(isinstance(ref, DerivedRef)
-           for ref in [stmt.table] + [j.table for j in stmt.joins]):
-        raise _unsupported("Derived tables, CTEs and views")
-    exprs = [it.expr for it in stmt.items] + list(stmt.group_by)
-    exprs += [o.expr for o in stmt.order_by]
-    exprs += [e for e in (stmt.where, stmt.having) if e is not None]
-    for e in exprs:
-        for node in walk(e):
-            if isinstance(node, (SubQuery, InSub, ExistsSub)):
-                raise _unsupported("IN/EXISTS/scalar subqueries")
-            if isinstance(node, WindowFn):
-                raise _unsupported("Window functions")
-
-
 def _expr_name(expr) -> str:
     """Human-readable name for an unaliased select item."""
     if isinstance(expr, Col):
@@ -159,6 +139,15 @@ def _expr_name(expr) -> str:
 
     if isinstance(expr, _Coal):
         return "coalesce(" + ", ".join(_expr_name(a) for a in expr.args) + ")"
+    if isinstance(expr, SubQuery):
+        return "(subquery)"
+    if isinstance(expr, InSub):
+        return f"({_expr_name(expr.expr)} in (subquery))"
+    if isinstance(expr, WindowFn):
+        arg = ("" if expr.arg is None
+               else "*" if isinstance(expr.arg, Star)
+               else _expr_name(expr.arg))
+        return f"{expr.func}({arg}) over (...)"
     return "expr"
 
 
@@ -205,9 +194,32 @@ class _Resolver:
         return matches[0][1]
 
     def rewrite(self, expr):
-        """Recursively replace Col nodes with internal-keyed Col nodes."""
+        """Recursively replace Col nodes with internal-keyed Col nodes.
+        Subquery bodies are self-contained (non-correlated) — they resolve
+        against their own plan, not this environment."""
         if isinstance(expr, Col):
             return Col(self.resolve_col(expr))
+        if isinstance(expr, SubQuery):
+            return expr
+        if isinstance(expr, ExistsSub):
+            # the planner lowers EXISTS in WHERE/HAVING before resolution;
+            # one reaching the resolver sits somewhere unsupported
+            raise PlanError(
+                "EXISTS is only supported in WHERE and HAVING"
+            )
+        if isinstance(expr, InSub):
+            return InSub(self.rewrite(expr.expr), expr.sub, expr.negate)
+        if isinstance(expr, WindowFn):
+            arg = expr.arg
+            if arg is not None and not isinstance(arg, Star):
+                arg = self.rewrite(arg)
+            return WindowFn(
+                expr.func, arg,
+                tuple(Col(self.resolve_col(p)) for p in expr.partition_by),
+                tuple(OrderItem(self.rewrite(o.expr), o.descending)
+                      for o in expr.order_by),
+                expr.params, expr.frame,
+            )
         from harkdb_tpu_torch.sql.ast_nodes import Coalesce, StrFunc
 
         if isinstance(expr, Coalesce):
@@ -246,6 +258,45 @@ class _Resolver:
         return [(b_env[c], c) for c in cols]
 
 
+def _substitute_wins(expr, win_map):
+    """Replace WindowFn nodes with their computed output columns."""
+    from harkdb_tpu_torch.sql.ast_nodes import Coalesce as _Coalesce
+    from harkdb_tpu_torch.sql.ast_nodes import CodeMap as _CM, NullTag as _NT
+
+    if isinstance(expr, WindowFn):
+        return Col(win_map[expr])
+    if isinstance(expr, _Coalesce):
+        return _Coalesce(tuple(
+            _substitute_wins(a, win_map) for a in expr.args
+        ))
+    if isinstance(expr, _CM):
+        return _CM(_substitute_wins(expr.col, win_map), expr.lut,
+                   expr.out_dict)
+    if isinstance(expr, _NT):
+        return _NT(_substitute_wins(expr.expr, win_map), expr.flags)
+    if isinstance(expr, BinOp):
+        return BinOp(
+            expr.op, _substitute_wins(expr.left, win_map),
+            _substitute_wins(expr.right, win_map),
+        )
+    if isinstance(expr, UnOp):
+        return UnOp(expr.op, _substitute_wins(expr.operand, win_map))
+    if isinstance(expr, LutMember):
+        return LutMember(_substitute_wins(expr.col, win_map), expr.lut)
+    if isinstance(expr, InSub):
+        return InSub(
+            _substitute_wins(expr.expr, win_map), expr.sub, expr.negate
+        )
+    if isinstance(expr, Case):
+        return Case(
+            tuple((_substitute_wins(c, win_map), _substitute_wins(r, win_map))
+                  for c, r in expr.whens),
+            _substitute_wins(expr.else_, win_map)
+            if expr.else_ is not None else None,
+        )
+    return expr
+
+
 def _substitute_aggs(expr, agg_map):
     """Replace Agg nodes with their computed output columns."""
     from harkdb_tpu_torch.sql.ast_nodes import Coalesce as _Coalesce
@@ -264,6 +315,18 @@ def _substitute_aggs(expr, agg_map):
         return _CodeMap(
             _substitute_aggs(expr.col, agg_map), expr.lut, expr.out_dict
         )
+    if isinstance(expr, WindowFn):
+        # windows over grouped output: their argument / ORDER BY may
+        # reference aggregates (rank() over (order by sum(v) desc))
+        arg = expr.arg
+        if arg is not None and not isinstance(arg, Star):
+            arg = _substitute_aggs(arg, agg_map)
+        return WindowFn(
+            expr.func, arg, expr.partition_by,
+            tuple(OrderItem(_substitute_aggs(o.expr, agg_map),
+                            o.descending) for o in expr.order_by),
+            expr.params, expr.frame,
+        )
     if isinstance(expr, BinOp):
         return BinOp(
             expr.op, _substitute_aggs(expr.left, agg_map),
@@ -273,6 +336,10 @@ def _substitute_aggs(expr, agg_map):
         return UnOp(expr.op, _substitute_aggs(expr.operand, agg_map))
     if isinstance(expr, LutMember):
         return LutMember(_substitute_aggs(expr.col, agg_map), expr.lut)
+    if isinstance(expr, InSub):
+        return InSub(
+            _substitute_aggs(expr.expr, agg_map), expr.sub, expr.negate
+        )
     if isinstance(expr, Case):
         return Case(
             tuple((_substitute_aggs(c, agg_map), _substitute_aggs(r, agg_map))
@@ -297,21 +364,42 @@ class QueryPlan(StringLowering, NullSemantics):
     def _build(self, stmt: SelectStmt, tables: Dict[str, Table]):
         # Correlated scalar-aggregate subqueries rewrite into LEFT JOINs
         # against grouped derived tables BEFORE any resolution
-        # (plan/decorrelate.py); the port rejects the result by name.
+        # (plan/decorrelate.py); unrecognized shapes fall through to the
+        # named correlated-subquery error below.
         from harkdb_tpu_torch.plan.decorrelate import decorrelate_aggregates
 
         stmt = decorrelate_aggregates(stmt, tables)
         self.stmt = stmt
-        _check_ported(stmt)
         # FROM / JOIN resolution (reference contract parse.py:29-33).
         refs = [stmt.table] + [j.table for j in stmt.joins]
         bindings = []
         seen = set()
+        # Derived tables (FROM (SELECT ...) alias): the inner SELECT plans
+        # now (resolution errors surface at plan time) and materializes
+        # lazily at first execution — plan/derived.py.
+        self._derived: Dict[str, object] = {}
+        self._derived_by_stmt: Dict[int, object] = {}
         for ref in refs:
             b = ref.binding
             if b in seen:
                 raise PlanError(f"Duplicate table binding {b!r}; use aliases")
             seen.add(b)
+            if isinstance(ref, DerivedRef):
+                from harkdb_tpu_torch.plan.derived import DerivedSource
+
+                # CTE references share the SAME statement object (parser
+                # substitution) — share one DerivedSource per body so the
+                # inner query materializes once however many times the
+                # CTE is named. Set-operation bodies plan as UnionPlans.
+                src = self._derived_by_stmt.get(id(ref.stmt))
+                if src is None:
+                    src = DerivedSource(
+                        _plan_for_stmt(ref.stmt, tables, self.config)
+                    )
+                    self._derived_by_stmt[id(ref.stmt)] = src
+                self._derived[ref.name] = src
+                bindings.append((b, ref.name, src.get_schema()))
+                continue
             if ref.name not in tables:
                 raise PlanError(f"{ref.name} is not in tables",
                                 "table", ref.name)
@@ -440,6 +528,13 @@ class QueryPlan(StringLowering, NullSemantics):
                 where_ast = (r_ast if where_ast is None
                              else BinOp("and", where_ast, r_ast))
         having_ast = stmt.having
+        # EXISTS lowers pre-resolution: a single correlated column equality
+        # becomes the semi-join form `outer_col IN (SELECT inner_col ...)`;
+        # uncorrelated becomes `(SELECT count(*) ...) > offset`.
+        if where_ast is not None:
+            where_ast = self._lower_exists(where_ast, tables)
+        if having_ast is not None:
+            having_ast = self._lower_exists(having_ast, tables)
         self.where = res.rewrite(where_ast) if where_ast is not None else None
         group_items_raw = [res.rewrite(g) for g in stmt.group_by]
 
@@ -579,6 +674,18 @@ class QueryPlan(StringLowering, NullSemantics):
                     return _NT(subst_g(e.expr), e.flags)
                 if isinstance(e, _SF):
                     return _SF(e.func, subst_g(e.arg), e.params)
+                if isinstance(e, InSub):
+                    return InSub(subst_g(e.expr), e.sub, e.negate)
+                if isinstance(e, WindowFn):
+                    arg = e.arg
+                    if arg is not None and not isinstance(arg, Star):
+                        arg = subst_g(arg)
+                    return WindowFn(
+                        e.func, arg, e.partition_by,
+                        tuple(OrderItem(subst_g(o.expr), o.descending)
+                              for o in e.order_by),
+                        e.params, e.frame,
+                    )
                 return e
 
             items = [(subst_g(e), name) for e, name in items]
@@ -596,7 +703,13 @@ class QueryPlan(StringLowering, NullSemantics):
             + [e for e, _ in order_items]
             + ([having] if having is not None else [])
         ):
-            for node in walk(e):
+            nodes = walk(e)
+            if any(isinstance(nd, (SubQuery, InSub)) for nd in nodes):
+                # Comparisons against a subquery defer lowering to first
+                # execution ('x' = (select max(name) ...) is legitimate);
+                # _resolve_subqueries re-validates post-substitution.
+                continue
+            for node in nodes:
                 if isinstance(node, Lit) and isinstance(node.value, str):
                     raise PlanError(
                         "String literals are only supported in comparisons, "
@@ -704,6 +817,18 @@ class QueryPlan(StringLowering, NullSemantics):
                     check(e.arg, True)
                 elif isinstance(e, LutMember):
                     check(e.col, inside_agg)
+                elif isinstance(e, InSub):
+                    check(e.expr, inside_agg)
+                elif isinstance(e, WindowFn):
+                    # windows evaluate over the GROUPED output: their
+                    # argument / partition / order expressions obey the
+                    # same rule (group key or aggregate)
+                    if e.arg is not None and not isinstance(e.arg, Star):
+                        check(e.arg, inside_agg)
+                    for p in e.partition_by:
+                        check(p, inside_agg)
+                    for o in e.order_by:
+                        check(o.expr, inside_agg)
                 elif isinstance(e, Case):
                     for c, r in e.whens:
                         check(c, inside_agg)
@@ -762,10 +887,140 @@ class QueryPlan(StringLowering, NullSemantics):
         # right side) expressions — see _null_adjusted_key.
         self.order_nulls = [o.nulls for o in stmt.order_by]
 
+        # ---- window functions ------------------------------------------------
+        # Computed over the post-WHERE rows (ungrouped) or the GROUPED
+        # output (standard SQL: windows evaluate after GROUP BY/HAVING —
+        # their arguments reference aggregates, already substituted to
+        # their output columns above). One payload sort per distinct
+        # (PARTITION BY, ORDER BY) shape + a single shared restore
+        # (plan/windows.py). Only in the select list / ORDER BY. Grouped
+        # queries tie-break window sorts on the exec group keys (unique
+        # per row) instead of the row positions grouping consumed.
+        win_nodes: List[WindowFn] = []
+        for e in ([e for e, _ in self.final_items]
+                  + [e for e, _ in self.order_items]):
+            for node in walk(e):
+                if isinstance(node, WindowFn) and node not in win_nodes:
+                    win_nodes.append(node)
+        for container in (
+            list(self.pushdown.values())
+            + ([self.where_residual] if self.where_residual is not None
+               else [])
+            + ([self.having] if self.having is not None else [])
+        ):
+            if any(isinstance(n, WindowFn) for n in walk(container)):
+                raise PlanError(
+                    "Window functions are only allowed in the select list "
+                    "and ORDER BY"
+                )
+        if win_nodes and grouped and not group_keys:
+            raise PlanError(
+                "Window functions over an ungrouped aggregate (a single "
+                "implicit group) are not meaningful"
+            )
+        self.window_specs: List[Tuple] = []
+        self.win_out_dicts: Dict[str, np.ndarray] = {}
+        win_map: Dict[WindowFn, str] = {}
+        for i, node in enumerate(win_nodes):
+            out = f"#win{i}"
+            arg_is_str = (
+                node.arg is not None and not isinstance(node.arg, Star)
+                and self._expr_str_dict(node.arg) is not None
+            )
+            # code-preserving funcs keep the argument's dictionary
+            if node.func in ("min", "max", "lag", "lead", "first_value",
+                             "last_value", "nth_value") and arg_is_str:
+                self.win_out_dicts[out] = self._expr_str_dict(node.arg)
+            if node.func in ("lag", "lead"):
+                if node.params and (
+                    not isinstance(node.params[0], int)
+                    or node.params[0] < 0
+                ):
+                    raise PlanError(
+                        f"{node.func} offset must be a non-negative integer"
+                    )
+                if arg_is_str and len(node.params) > 1:
+                    raise PlanError(
+                        f"{node.func} over a string column does not "
+                        f"support an explicit default"
+                    )
+            if node.frame is not None:
+                # frame = ("rows", lo, hi): signed offsets from the
+                # current row (negative = PRECEDING), None = unbounded.
+                lo_f, hi_f = node.frame[1], node.frame[2]
+                if node.func == "prod" and lo_f is not None:
+                    raise PlanError(
+                        "PROD does not support a bounded ROWS frame "
+                        "(no inverse for the sliding combine)"
+                    )
+                if node.func in ("min", "max") and not (
+                    (lo_f is None or lo_f <= 0)
+                    and (hi_f is None or hi_f >= 0)
+                ):
+                    raise PlanError(
+                        "Bounded MIN/MAX frames must include the current "
+                        "row (no inverse for the sliding combine)"
+                    )
+                if node.func != "count" and (
+                    (lo_f is not None and lo_f > 0)
+                    or (hi_f is not None and hi_f < 0)
+                ):
+                    # frame can be empty → NULL result rows (hidden
+                    # validity column emitted by plan/windows.py)
+                    self.agg_null_flags[out] = f"#winvalid{i}"
+            if node.func == "nth_value":
+                # all-frame-shorter-than-n rows are NULL — a hidden
+                # validity column computed alongside the value drives the
+                # output NULL indicators (plan/windows.py)
+                self.agg_null_flags[out] = f"#winvalid{i}"
+            self.window_specs.append((
+                out, node.func,
+                None if (node.arg is None or isinstance(node.arg, Star))
+                else node.arg,
+                tuple(p.name for p in node.partition_by),
+                tuple(o.expr for o in node.order_by),
+                tuple(o.descending for o in node.order_by),
+                tuple(node.params),
+                node.frame,
+            ))
+            win_map[node] = out
+        if win_nodes:
+            self.final_items = [
+                (_substitute_wins(e, win_map), n) for e, n in self.final_items
+            ]
+            self.order_items = [
+                (_substitute_wins(e, win_map), d) for e, d in self.order_items
+            ]
 
         self.limit = stmt.limit
         self.offset = stmt.offset
         self.distinct = stmt.distinct
+
+        # ---- sort-order tracking ---------------------------------------------
+        # When the final ORDER BY is EXACTLY one window shape's
+        # (PARTITION BY asc..., ORDER BY ...) sort — same expressions,
+        # same directions, default NULL placement, no nullable keys (their
+        # extreme substitution would reorder), no DISTINCT — that shape's
+        # own sort already produces the requested order: compute_windows
+        # schedules it last and both the restore and run_tail's ORDER BY
+        # sort are skipped (plan/windows.py).
+        self.window_skip_shape = None
+        if (self.window_specs and self.order_items and not self.distinct
+                and all(nu is None for nu in self.order_nulls)):
+            shapes = {(s[3], s[4], s[5]) for s in self.window_specs}
+            for parts, oexprs, descs in shapes:
+                target = (
+                    [(Col(p), False) for p in parts]
+                    + list(zip(oexprs, descs))
+                )
+                if (len(self.order_items) == len(target)
+                        and all(e == te and d == td
+                                for (e, d), (te, td)
+                                in zip(self.order_items, target))
+                        and all(not self._nullable_flags_in(e)
+                                for e, _d in self.order_items)):
+                    self.window_skip_shape = (parts, oexprs, descs)
+                    break
         if self.distinct:
             # With DISTINCT the row set changes before ORDER BY, so order
             # keys must be select-list expressions (standard SQL rule).
@@ -793,6 +1048,8 @@ class QueryPlan(StringLowering, NullSemantics):
                 d = self.str_dicts.get(e.name)
                 if d is None:
                     d = self.agg_out_dicts.get(e.name)
+                if d is None:
+                    d = self.win_out_dicts.get(e.name)
             elif isinstance(e, _CodeMap):
                 d = e.out_dict          # string function output (UPPER/...)
             self.output_dicts.append(d)
@@ -887,7 +1144,134 @@ class QueryPlan(StringLowering, NullSemantics):
             used |= {n.name for n in walk(e) if isinstance(n, Col)}
         for _rb, lks, rks, _k in self.join_steps:
             used |= set(lks) | set(rks)
+        for _out, _f, arg, parts, oexprs, _ds, *_rest in self.window_specs:
+            used |= set(parts)
+            if arg is not None:
+                used |= {n.name for n in walk(arg) if isinstance(n, Col)}
+            for oe in oexprs:
+                used |= {n.name for n in walk(oe) if isinstance(n, Col)}
         self.used_columns = used
+
+        # ---- subqueries ------------------------------------------------------
+        # Plan every (self-contained) subquery now so resolution errors
+        # surface at plan time; evaluation happens once, lazily, at first
+        # execution (_resolve_subqueries) — tables are immutable while a
+        # plan is cached, so the substituted literal stays valid.
+        self._subplans: Dict[object, object] = {}
+        self._subs_resolved = not self._collect_subqueries(tables)
+
+    # -- EXISTS lowering -------------------------------------------------------
+    def _lower_exists(self, e, tables):
+        """Replace ExistsSub nodes (WHERE/HAVING only) with their semi-join
+        or scalar-count forms — see ``_rewrite_exists``."""
+        if isinstance(e, ExistsSub):
+            return self._rewrite_exists(e.stmt, tables)
+        if isinstance(e, BinOp):
+            return BinOp(e.op, self._lower_exists(e.left, tables),
+                         self._lower_exists(e.right, tables))
+        if isinstance(e, UnOp):
+            return UnOp(e.op, self._lower_exists(e.operand, tables))
+        if isinstance(e, Case):
+            return Case(
+                tuple((self._lower_exists(c, tables),
+                       self._lower_exists(r, tables)) for c, r in e.whens),
+                self._lower_exists(e.else_, tables)
+                if e.else_ is not None else None,
+            )
+        return e
+
+    def _rewrite_exists(self, sub, tables):
+        """EXISTS (SELECT ...):
+
+        * exactly one correlated COLUMN equality in the inner WHERE
+          (``... r.k = t.k``) → ``t.k IN (SELECT r.k FROM ... WHERE rest)``
+          — exact semi-join semantics (membership of the outer key in the
+          filtered inner key set); inner ORDER BY/LIMIT are irrelevant to
+          emptiness and drop;
+        * no correlation → ``(SELECT count(*) ...) > offset`` (LIMIT ≥ 1
+          cannot change emptiness; LIMIT 0 folds to false);
+        * anything more correlated raises the standard message.
+        """
+        if sub.group_by or sub.having is not None or sub.distinct:
+            raise PlanError(
+                "EXISTS subqueries with GROUP BY/HAVING/DISTINCT are not "
+                "supported"
+            )
+        if sub.limit == 0:
+            return BinOp("<", Lit(1), Lit(0))          # always false
+        inner_bind: Dict[str, set] = {}
+        for ref in [sub.table] + [j.table for j in sub.joins]:
+            if isinstance(ref, DerivedRef):
+                body = ref.stmt
+                if not isinstance(body, SelectStmt):
+                    body = body.arms[0]   # set-op body: first arm's schema
+                inner_bind[ref.binding] = {
+                    it.alias or _expr_name(it.expr) for it in body.items
+                }
+            elif ref.name in tables:
+                inner_bind[ref.binding] = set(tables[ref.name].get_schema())
+            else:
+                raise PlanError(f"{ref.name} is not in tables")
+        outer_bind = {b: set(cols) for b, _t, cols in self.bindings}
+
+        def scope(col: Col) -> str:
+            if col.table is not None:
+                if col.table in inner_bind:
+                    return "inner"
+                if col.table in outer_bind:
+                    return "outer"
+                return "unknown"
+            # bare name: inner scope shadows outer (standard SQL)
+            if any(col.name in cs for cs in inner_bind.values()):
+                return "inner"
+            if any(col.name in cs for cs in outer_bind.values()):
+                return "outer"
+            return "unknown"
+
+        def conjuncts(x):
+            if isinstance(x, BinOp) and x.op == "and":
+                return conjuncts(x.left) + conjuncts(x.right)
+            return [x]
+
+        corr = None
+        rest = []
+        for c in (conjuncts(sub.where) if sub.where is not None else []):
+            if (corr is None and isinstance(c, BinOp) and c.op == "="
+                    and isinstance(c.left, Col) and isinstance(c.right, Col)):
+                sl, sr = scope(c.left), scope(c.right)
+                if {sl, sr} == {"inner", "outer"}:
+                    inner_col = c.left if sl == "inner" else c.right
+                    outer_col = c.right if sl == "inner" else c.left
+                    corr = (inner_col, outer_col)
+                    continue
+            for nd in walk(c):
+                if isinstance(nd, Col) and scope(nd) == "outer":
+                    raise PlanError(
+                        "correlated subqueries are not supported beyond a "
+                        "single EXISTS column equality"
+                    )
+            rest.append(c)
+        w = None
+        for c in rest:
+            w = c if w is None else BinOp("and", w, c)
+        if corr is None:
+            cnt_stmt = SelectStmt(
+                items=(SelectItem(Agg("count", Star())),),
+                table=sub.table, joins=sub.joins, where=w,
+                group_by=(), having=None, order_by=(), limit=None,
+                offset=None, distinct=False,
+            )
+            return BinOp(">", SubQuery(cnt_stmt), Lit(sub.offset or 0))
+        if sub.offset:
+            raise PlanError(
+                "EXISTS with both OFFSET and a correlation is not supported"
+            )
+        in_stmt = SelectStmt(
+            items=(SelectItem(corr[0]),), table=sub.table, joins=sub.joins,
+            where=w, group_by=(), having=None, order_by=(), limit=None,
+            offset=None, distinct=False,
+        )
+        return InSub(corr[1], SubQuery(in_stmt), False)
 
     # -- NULL machinery: plan/nulls.py (NullSemantics mixin) -------------------
     def _null_adjusted_key(self, expr, d: bool, nu, cols, cap):
@@ -901,6 +1285,272 @@ class QueryPlan(StringLowering, NullSemantics):
             if m is not None:
                 a = _null_extreme_sub(a, ~m, d, nu)
         return a
+
+    # -- subqueries ------------------------------------------------------------
+    def _iter_exprs(self):
+        """Every stored expression tree that may carry subquery nodes —
+        including window-spec argument / ORDER BY expressions (WindowFn
+        nodes were substituted out of final_items, so their inner trees
+        live only in window_specs)."""
+        for e, _n in self.final_items:
+            yield e
+        for b in self.pushdown:
+            yield self.pushdown[b]
+        if self.where_residual is not None:
+            yield self.where_residual
+        if self.having is not None:
+            yield self.having
+        for e, _d in self.order_items:
+            yield e
+        for _i, e in self.agg_arg_cols:
+            yield e
+        for _out, _f, arg, _p, oexprs, _d, *_rest in self.window_specs:
+            if arg is not None:
+                yield arg
+            for oe in oexprs:
+                yield oe
+
+    def _collect_subqueries(self, tables) -> bool:
+        found = False
+        for e in self._iter_exprs():
+            for node in walk(e):
+                subs = []
+                if isinstance(node, SubQuery):
+                    subs = [node]
+                elif isinstance(node, InSub):
+                    subs = [node.sub]
+                for s in subs:
+                    found = True
+                    if s not in self._subplans:
+                        try:
+                            p = _plan_for_stmt(s.stmt, tables, self.config)
+                        except PlanError as err:
+                            # A sub-plan resolution failure whose
+                            # STRUCTURED unresolved identifier names an
+                            # OUTER binding (alias or column) is a
+                            # correlated reference — say so instead of the
+                            # misleading "X is not in tables".
+                            if self._names_outer_binding(err):
+                                raise PlanError(
+                                    "correlated subqueries are not "
+                                    "supported"
+                                ) from None
+                            raise
+                        if len(p.output_names) != 1:
+                            raise PlanError(
+                                "Subquery must select exactly one column"
+                            )
+                        self._subplans[s] = p
+        return found
+
+    def _names_outer_binding(self, err: PlanError) -> bool:
+        """True when a sub-plan PlanError's structured unresolved
+        identifier resolves in THIS (outer) scope — i.e. the subquery was
+        correlated. Structured data (no message regex-matching): an inner
+        table genuinely missing from the registry whose NAME collides with
+        an outer alias carries kind="table" and is only classified as
+        correlated when the outer scope binds that alias — the previous
+        text-matching version could not tell these apart for columns."""
+        if err.unresolved_kind == "table":
+            return any(
+                b == err.unresolved_name for b, _t, _cols in self.bindings
+            )
+        if err.unresolved_kind == "column":
+            return any(
+                err.unresolved_name in env
+                for env in self.resolver.by_binding.values()
+            )
+        return False
+
+    _IN_SUB_MAX = 1024
+    # > _IN_SUB_MAX distinct int values lower to a boolean-LUT gather
+    # instead of an OR-chain; span cap bounds the LUT at 4 MB of bool.
+    _IN_LUT_SPAN = 1 << 22
+
+    def _resolve_subqueries(self, tables):
+        """First-execution pass: run each subquery plan, then substitute
+        scalar results / IN value sets as literals and re-lower (string
+        values translate against the outer column's dictionary here)."""
+        if self._subs_resolved:
+            return
+        values: Dict[object, object] = {}      # SubQuery → scalar | np array
+        for s, p in self._subplans.items():
+            b = p.execute(tables)
+            n = int(b.n_valid)
+            col = b.columns[b.names[0]][:n].cpu().numpy()
+            # SQL NULL semantics for subquery results: NULL rows (hidden
+            # indicator 0) are not VALUES — IN drops them (a non-match
+            # against a set containing NULL is UNKNOWN → false anyway),
+            # NOT IN with any NULL in the set is false for every row.
+            nf = b.columns.get("#nullflag0")
+            has_null = False
+            if nf is not None:
+                valid = nf[:n].cpu().numpy() != 0
+                has_null = bool((~valid).any())
+                col = col[valid]
+            d = p.output_dicts[0]
+            values[s] = (col, d, has_null)
+
+        def scalar_of(s) -> object:
+            col, d, has_null = values[s]
+            if has_null and col.shape[0] == 0:
+                raise PlanError(
+                    "Scalar subquery returned NULL; comparisons with a "
+                    "NULL scalar are not supported (rewrite with "
+                    "COALESCE inside the subquery)"
+                )
+            if col.shape[0] != 1:
+                raise PlanError(
+                    f"Scalar subquery returned {col.shape[0]} rows, "
+                    f"expected 1"
+                )
+            v = col[0]
+            return str(d[int(v)]) if d is not None else v.item()
+
+        def set_of(s):
+            """("list", values) for small sets (OR-chain lowering), else a
+            LUT form: ("slut", unique strings) for string columns (bits
+            built over the OUTER column's dictionary at subst time) or
+            ("ilut", min, bool bits) for bounded-span int columns."""
+            col, d, _has_null = values[s]
+            vals = np.unique(col)
+            if vals.shape[0] <= self._IN_SUB_MAX:
+                if d is not None:
+                    return ("list", [str(x) for x in d[vals]])
+                return ("list", [v.item() for v in vals])
+            if d is not None:
+                return ("slut", d[vals])
+            if not np.issubdtype(vals.dtype, np.integer):
+                raise PlanError(
+                    f"IN (SELECT ...) with more than {self._IN_SUB_MAX} "
+                    f"distinct float values is not supported"
+                )
+            mn, mx = int(vals[0]), int(vals[-1])
+            span = mx - mn + 1
+            if span > self._IN_LUT_SPAN:
+                raise PlanError(
+                    f"IN (SELECT ...) with more than {self._IN_SUB_MAX} "
+                    f"distinct values spanning more than "
+                    f"{self._IN_LUT_SPAN} is not supported"
+                )
+            # int32 wrap guard (round-4 advisor): the lowered index is
+            # `probe - (mn-1)` in int32. A probe near INT32_MIN against a
+            # value set near INT32_MAX wraps the subtraction back INTO the
+            # live bit range (aliasing ⇔ mn ≥ 2^31 − span); mn−1 itself
+            # must also stay representable. Both only occur at the dtype's
+            # extremes — reject rather than silently mis-answer.
+            if mn - 1 < -(1 << 31) or mn >= (1 << 31) - span:
+                raise PlanError(
+                    "IN (SELECT ...) value set sits at the int32 range "
+                    "boundary; the LUT index arithmetic would wrap"
+                )
+            bits = np.zeros(span, bool)
+            bits[vals - mn] = True
+            return ("ilut", (mn, bits))
+
+        def subst(e):
+            if isinstance(e, SubQuery):
+                return Lit(scalar_of(e))
+            if isinstance(e, InSub):
+                left = subst(e.expr)
+                if e.negate and values[e.sub][2]:
+                    # SQL: `x NOT IN (set containing NULL)` is never TRUE
+                    # (either x matches a real value → false, or the NULL
+                    # comparison makes it UNKNOWN) — constant false
+                    return BinOp("<", Lit(1), Lit(0))
+                kind, payload = set_of(e.sub)
+                if kind == "slut":
+                    # membership bits over the OUTER column's dictionary —
+                    # exactly how LIKE lowers (codes are always valid
+                    # dictionary indices on live rows)
+                    d = self._expr_str_dict(left)
+                    if d is None:
+                        raise PlanError(
+                            "Cannot compare string and numeric values"
+                        )
+                    bits = np.zeros(len(d), bool)
+                    idx = np.searchsorted(d, payload)
+                    ok = idx < len(d)
+                    ok &= d[np.minimum(idx, len(d) - 1)] == payload
+                    bits[idx[ok]] = True
+                    chain = LutMember(left, bits)
+                    return UnOp("not", chain) if e.negate else chain
+                if kind == "ilut":
+                    mn, bits = payload
+                    # False guard bits at both ends + a 1-shift so the
+                    # evaluator's clip maps every out-of-range value onto
+                    # a guard (clip would otherwise alias the boundary
+                    # entries' real membership bits)
+                    bits2 = np.zeros(len(bits) + 2, bool)
+                    bits2[1:-1] = bits
+                    chain = LutMember(
+                        BinOp("-", left, Lit(int(mn) - 1)), bits2
+                    )
+                    return UnOp("not", chain) if e.negate else chain
+                vals = payload
+                if not vals:
+                    chain = BinOp("<", Lit(1), Lit(0))      # empty set: false
+                else:
+                    # BALANCED or-tree: a left-deep chain of ~1000 terms
+                    # blows Python's recursion limit in every tree walker.
+                    terms = [BinOp("=", left, Lit(v)) for v in vals]
+                    while len(terms) > 1:
+                        nxt = [
+                            BinOp("or", a, b)
+                            for a, b in zip(terms[::2], terms[1::2])
+                        ]
+                        if len(terms) % 2:
+                            nxt.append(terms[-1])
+                        terms = nxt
+                    chain = terms[0]
+                return UnOp("not", chain) if e.negate else chain
+            if isinstance(e, BinOp):
+                return BinOp(e.op, subst(e.left), subst(e.right))
+            if isinstance(e, UnOp):
+                return UnOp(e.op, subst(e.operand))
+            if isinstance(e, Agg) and not isinstance(e.arg, Star):
+                return Agg(e.func, subst(e.arg), e.distinct)
+            if isinstance(e, LutMember):
+                return LutMember(subst(e.col), e.lut)
+            if isinstance(e, Case):
+                return Case(
+                    tuple((subst(c), subst(r)) for c, r in e.whens),
+                    subst(e.else_) if e.else_ is not None else None,
+                )
+            from harkdb_tpu_torch.sql.ast_nodes import NullTag as _NT
+
+            if isinstance(e, _NT):
+                return _NT(subst(e.expr), e.flags)
+            return e
+
+        def lower(e):
+            return self._lower_strings(subst(e))
+
+        self.final_items = [(lower(e), n) for e, n in self.final_items]
+        self.pushdown = {b: lower(e) for b, e in self.pushdown.items()}
+        if self.where_residual is not None:
+            self.where_residual = lower(self.where_residual)
+        if self.having is not None:
+            self.having = lower(self.having)
+        self.order_items = [(lower(e), d) for e, d in self.order_items]
+        self.agg_arg_cols = [(i, lower(e)) for i, e in self.agg_arg_cols]
+        self.window_specs = [
+            (out, f,
+             lower(arg) if arg is not None else None,
+             parts, tuple(lower(oe) for oe in oexprs), descs, pp, frame)
+            for out, f, arg, parts, oexprs, descs, pp, frame
+            in self.window_specs
+        ]
+        # Deferred string-literal misuse (e.g. a str literal compared only
+        # against a numeric subquery result) surfaces here, post-lowering.
+        for e in self._iter_exprs():
+            for node in walk(e):
+                if isinstance(node, Lit) and isinstance(node.value, str):
+                    raise PlanError(
+                        "String literals are only supported in comparisons, "
+                        "IN, BETWEEN and LIKE"
+                    )
+        self._subs_resolved = True
 
     def _probe_impl(self, batch: ColumnBatch):
         """On-device (min, max, any) of the group key over live rows passing
@@ -988,6 +1638,7 @@ class QueryPlan(StringLowering, NullSemantics):
 
     # -- execution ------------------------------------------------------------
     def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
+        self._resolve_subqueries(tables)
         # Phase A: load + joins (count-then-materialize per join).
         b0 = self.bindings[0][0]
         batch = self._load(tables, 0)
@@ -1040,7 +1691,8 @@ class QueryPlan(StringLowering, NullSemantics):
         # (config.shrink_rows_min gates small inputs out of the sync).
         if (not self.join_steps and self.pushdown and fast_span is None
                 and batch.capacity >= self.config.shrink_rows_min
-                and (self.grouped or self.order_items or self.distinct)):
+                and (self.grouped or self.order_items or self.distinct
+                     or self.window_specs)):
             n_live = int(batch.n_valid)
             cap_b = min(_next_pow2(max(n_live, row_align)), batch.capacity)
             if cap_b < batch.capacity:
@@ -1057,12 +1709,14 @@ class QueryPlan(StringLowering, NullSemantics):
         return self._phase_b(batch, fast_span, key_min)
 
     def _source(self, tables: Dict[str, Table], tname: str):
-        """Table behind a binding's table name."""
-        return tables[tname]
+        """Table or DerivedSource behind a binding's table name."""
+        d = self._derived.get(tname)
+        return d if d is not None else tables[tname]
 
     def _load(self, tables: Dict[str, Table], binding_idx: int) -> ColumnBatch:
         b, tname, cols = self.bindings[binding_idx]
-        src = self._source(tables, tname).batch()
+        d = self._derived.get(tname)
+        src = d.batch(tables) if d is not None else tables[tname].batch()
         remaps = self.load_remaps.get(b, {})
         out = {}
         # A query touching no columns at all (``select count(*) from t``)
@@ -1102,7 +1756,15 @@ class QueryPlan(StringLowering, NullSemantics):
             where_mask = eval_expr(
                 self.where_residual, batch.columns, cap, self.config
             ).to(torch.bool)
-            if not (self.grouped or self.order_items or self.distinct):
+            # Window partitions must only see surviving rows, so UNGROUPED
+            # windows force the compaction that a downstream sort would
+            # otherwise absorb. Grouped windows run over the aggregated
+            # output, so the WHERE mask still fuses into the groupby sort.
+            absorbed = (
+                (self.grouped or self.order_items or self.distinct)
+                and (self.grouped or not self.window_specs)
+            )
+            if not absorbed:
                 batch = compact_batch(batch, where_mask)
                 where_mask = None
 
@@ -1183,16 +1845,28 @@ class QueryPlan(StringLowering, NullSemantics):
                 )
             if stop_after_group:
                 return batch
-        return self.run_tail(batch, filter_mask=where_mask)
 
+        # Grouped windows run in run_tail, after HAVING. (The JAX package
+        # computes them here as well and then again there, keeping the
+        # second result; group keys break every tie, so once gives the same
+        # rows in the same order.)
+        presorted = False
+        if self.window_specs and not self.grouped:
+            batch, presorted = compute_windows(self, batch)
+        return self.run_tail(batch, filter_mask=where_mask,
+                             order_presorted=presorted)
 
-    def run_tail(self, batch: ColumnBatch, filter_mask=None) -> ColumnBatch:
-        """Post-aggregation tail: avg computes → HAVING → projection →
-        DISTINCT → ORDER BY → OFFSET → LIMIT.
+    def run_tail(self, batch: ColumnBatch, filter_mask=None,
+                 order_presorted: bool = False) -> ColumnBatch:
+        """Post-aggregation tail: avg computes → HAVING → windows over
+        grouped output → projection → DISTINCT → ORDER BY → OFFSET → LIMIT.
 
         ``filter_mask`` is a deferred WHERE predicate (ungrouped queries
         only); like HAVING it fuses into the DISTINCT / ORDER BY sort when
         one exists instead of paying its own compaction.
+        ``order_presorted``: the batch already sits in the final ORDER BY
+        order (a window shape's sort matched it — plan/windows.py), so the
+        ORDER BY sort is skipped.
         """
         dev = batch.device
         if self.grouped and self.post_computes:
@@ -1209,6 +1883,15 @@ class QueryPlan(StringLowering, NullSemantics):
             if not (self.distinct or self.order_items):
                 batch = compact_batch(batch, filter_mask)
                 filter_mask = None
+
+        # Windows over GROUPED output (standard SQL order: after GROUP BY
+        # and HAVING — so a pending HAVING mask must compact first; window
+        # partitions may only see surviving groups).
+        if self.grouped and self.window_specs:
+            if filter_mask is not None:
+                batch = compact_batch(batch, filter_mask)
+                filter_mask = None
+            batch, order_presorted = compute_windows(self, batch)
 
         # Materialize select outputs (unique internal slots, duplicates OK).
         out_cols = {}
@@ -1256,7 +1939,11 @@ class QueryPlan(StringLowering, NullSemantics):
         # ORDER BY: one stable sort (the JAX package takes lax.top_k for a
         # LIMIT of at most 1024; torch.topk promises no tie order, and the
         # stable sort followed by the LIMIT gives the same rows).
-        if self.order_items:
+        if self.order_items and order_presorted:
+            if filter_mask is not None:
+                out = compact_batch(out, filter_mask)
+                filter_mask = None
+        elif self.order_items:
             key_arrays = []
             desc = []
             if self.distinct:
@@ -1301,7 +1988,12 @@ class QueryPlan(StringLowering, NullSemantics):
     # -- observability --------------------------------------------------------
     def explain(self) -> str:
         b, tname, _cols = self.bindings[0]
-        lines = [f"Scan {tname} as {b}"]
+        src = self._derived.get(tname)
+        if src is None:
+            lines = [f"Scan {tname} as {b}"]
+        else:
+            lines = [f"DerivedScan as {b}:"]
+            lines += ["  " + ln for ln in src.plan.explain().splitlines()]
         for b in self.pushdown:
             lines.append(f"Filter pushdown → {b}")
         for rb, lks, rks, kind in self.join_steps:
@@ -1317,6 +2009,13 @@ class QueryPlan(StringLowering, NullSemantics):
             lines.append(f"Aggregate keys=[{keys}] aggs=[{aggs}]")
         if self.having is not None:
             lines.append("Filter (HAVING)")
+        if self.window_specs:
+            shapes = {(s[3], s[4], s[5]) for s in self.window_specs}
+            funcs = ", ".join(s[1] for s in self.window_specs)
+            lines.append(
+                f"Window [{funcs}] over {len(shapes)} shape(s) "
+                f"({len(shapes) + 1}-sort fused chain)"
+            )
         if self.order_items:
             lines.append(
                 "Sort " + ", ".join(
@@ -1338,9 +2037,13 @@ def _slice(batch: ColumnBatch, cap: int) -> ColumnBatch:
 
 
 def _plan_for_stmt(stmt, tables: Dict[str, Table],
-                   config: EngineConfig = DEFAULT_CONFIG) -> QueryPlan:
+                   config: EngineConfig = DEFAULT_CONFIG):
+    """SelectStmt → QueryPlan; UnionStmt → UnionPlan (shared by the top
+    level, derived tables / CTEs / views, and IN/scalar subqueries)."""
     if isinstance(stmt, UnionStmt):
-        raise _unsupported("UNION/INTERSECT/EXCEPT")
+        from harkdb_tpu_torch.plan.union_plan import UnionPlan
+
+        return UnionPlan(stmt, tables, config)
     return QueryPlan(stmt, tables, config)
 
 

@@ -1,9 +1,12 @@
 """harkdb_tpu_torch's CUDA kernels on the card (marker ``gpu``).
 
 Repeats chip_smoke.py's phase 3 — each kernel held against its plain
-PyTorch version on edge cases and at the main paths' shapes — and checks
-the main query, the joins and the dense-key GROUP BY on the card against
-the CPU port. Whether a card is present
+PyTorch version on edge cases and at the main paths' shapes — holds the
+running max / min (kernel B over one segment) against ``torch.cummax`` /
+``torch.cummin``, and checks the main query, the joins, the dense-key
+GROUP BY and the nested queries (windows, set operations, a CTE, EXISTS,
+IN and a correlated subquery) on the card against the CPU port. Whether a
+card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
 
@@ -134,6 +137,66 @@ def test_join_queries_match_cpu_port(cuda):
             q).last_fast_span
     assert expand.LAUNCHES >= len(JOIN_QUERIES)
     assert matmul_agg.LAUNCHES >= 1
+
+
+def test_running_max_min_on_card_match_cummax(cuda):
+    from harkdb_tpu_torch.kernels import segscan
+    from harkdb_tpu_torch.prims.scan import running_max, running_min
+
+    rng = np.random.default_rng(6)
+    for n in (0, 1, 1023, 1024, 1025, 1 << 20):
+        x = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+        cpu = torch.from_numpy(x)
+        for fn, scan in ((running_max, torch.cummax),
+                         (running_min, torch.cummin)):
+            for rev in (False, True):
+                want = (torch.flip(scan(torch.flip(cpu, [0]), 0).values, [0])
+                        if rev else scan(cpu, 0).values)
+                before = segscan.LAUNCHES
+                got = fn(cpu.to(cuda), reverse=rev).cpu()
+                assert torch.equal(got, want), (n, fn.__name__, rev)
+                assert segscan.LAUNCHES == before + (1 if n else 0)
+
+
+NESTED_QUERIES = [
+    "select k, v, row_number() over (partition by k order by v) as rn, "
+    "rank() over (partition by k order by v) as rk, "
+    "sum(v) over (partition by k order by v) as rs from t where v > 0",
+    "select k, min(v) over (partition by k order by v rows between 2 "
+    "preceding and 1 following) as m from t order by k, v",
+    "select k from t where v > 900 intersect select k from t "
+    "where v < -900 order by k",
+    "select k from t where v > 990 union select k from t where v < -990 "
+    "except select k from t where k < 100 order by 1",
+    "with s as (select k, sum(v) as sv from t group by k) "
+    "select count(*) as n, sum(sv) as tot from s where sv > 0",
+    "select k, count(*) as n from t where exists (select 1 from t t2 "
+    "where t2.k = t.k and t2.v > 995) group by k order by k",
+    "select count(*) as n from t where k in (select k from t where v > 998)",
+    "select sum(v) as s from t where v < (select avg(v) from t t2 "
+    "where t2.k = t.k)",
+]
+
+
+def test_nested_queries_match_cpu_port(cuda):
+    import harkdb_tpu_torch as H
+    from harkdb_tpu_torch.kernels import compact, segscan
+
+    rng = np.random.default_rng(7)
+    n = 100_000
+    data = {"k": rng.integers(0, 5000, n).astype(np.int32),
+            "v": rng.integers(-1000, 1000, n).astype(np.int32)}
+    on_card = H.Context(device=cuda)
+    on_cpu = H.Context(device="cpu")
+    on_card.create_table("t", data)
+    on_cpu.create_table("t", data)
+    compact.LAUNCHES = segscan.LAUNCHES = 0
+    for q in NESTED_QUERIES:
+        np.testing.assert_array_equal(on_card.sql(q), on_cpu.sql(q),
+                                      err_msg=q)
+    assert compact.LAUNCHES >= len(NESTED_QUERIES)
+    assert segscan.LAUNCHES >= 4
 
 
 def test_new_kernels_never_take_plain_version(cuda):

@@ -575,3 +575,183 @@ class TestJoinMaterialize:
         with pytest.raises(ValueError, match="need_full=True"):
             TJ.join_batches(None, None, "a", "c", 4, {"a": "a"}, {"c": "c"},
                             kind="full", ranges=trng)
+
+
+# -- running max / min (prims.scan), the window and set-operation pieces ------
+
+_RUN_LENGTHS = [0, 1, 2, 1023, 1024, 1025]
+
+
+def _edge_ints(rng, n):
+    x = rng.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32)
+    if n:
+        x[rng.random(n) < 0.05] = I32_MIN
+        x[rng.random(n) < 0.05] = I32_MAX
+        x[0] = (I32_MIN, I32_MAX)[n % 2]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("n", _RUN_LENGTHS)
+def test_running_max_min_match_torch_cummax(n, op, reverse):
+    """The helper equals torch.cummax / torch.cummin on int32, edge values
+    included; so does kernel B's plain version over one segment, which is
+    what a CUDA tensor takes."""
+    from harkdb_tpu_torch.kernels.segscan import flat_segscan_reference
+    from harkdb_tpu_torch.prims.scan import running_max, running_min
+
+    x = _edge_ints(np.random.default_rng(n), n)
+    helper = running_max if op == "max" else running_min
+    cum = torch.cummax if op == "max" else torch.cummin
+
+    def expect(a):
+        if reverse:
+            return torch.flip(cum(torch.flip(a, [0]), 0).values, [0])
+        return cum(a, 0).values
+
+    got = helper(x, reverse=reverse)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    assert torch.equal(got, expect(x))
+    xs = torch.flip(x, [0]) if reverse else x
+    plain = flat_segscan_reference(
+        op, torch.zeros(n, dtype=torch.int32), [xs],
+        I32_MIN if op == "max" else I32_MAX)[0]
+    if reverse:
+        plain = torch.flip(plain, [0])
+    assert torch.equal(plain, expect(x))
+
+
+def test_running_max_rejects_other_dtypes():
+    from harkdb_tpu_torch.prims.scan import running_max
+
+    with pytest.raises(ValueError, match="1-D int32"):
+        running_max(torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError, match="1-D int32"):
+        running_max(torch.zeros((2, 2), dtype=torch.int32))
+
+
+def _runs(rng, cap, count):
+    """Run starts over ``count`` live rows of ``cap`` (random lengths)."""
+    starts = np.zeros(cap, bool)
+    if count:
+        starts[0] = True
+        starts[:count] |= rng.random(count) < 0.3
+    return starts
+
+
+@pytest.mark.parametrize("cap,count", [(1, 1), (64, 0), (64, 64),
+                                        (300, 211), (1024, 1000)])
+def test_window_take_first_broadcasts_match_doubling_scan(cap, count):
+    """plan/windows.py's run_first / run_last gathers equal the JAX
+    package's take-first doubling scans (windows.py peers_last /
+    part_last, first_value and the suffix scan's partition-first value)
+    on every row, padding rows included."""
+    from harkdb_tpu_torch.plan.windows import run_first, run_last
+
+    rng = np.random.default_rng(cap + count)
+    starts = _runs(rng, cap, count)
+    x = rng.integers(-99, 99, cap).astype(np.int32)
+    f = rng.standard_normal(cap).astype(np.float32)
+    idx = np.arange(cap)
+    valid = idx < count
+    sid = (np.cumsum(starts) - 1).astype(np.int32)
+    safe = np.where(valid, sid, np.int32(1 << 30)).astype(np.int32)
+
+    def take_first(s, v):
+        return np.asarray(jax_doubling(lambda cur, prev: prev,
+                                       jnp.asarray(s), jnp.asarray(v)))
+
+    def take_last(s, v):
+        rev = np.flip(np.int32(1 << 30) - s).copy()
+        return np.flip(take_first(rev, np.flip(v).copy()))
+
+    t_starts = torch.from_numpy(starts | (idx == count))
+    for v in (x, f):
+        tv = torch.from_numpy(v)
+        np.testing.assert_array_equal(run_last(tv, t_starts).numpy(),
+                                      take_last(safe, v))
+        np.testing.assert_array_equal(run_first(tv, t_starts).numpy(),
+                                      take_first(safe, v))
+        # first_value's scan runs over sid itself: with no live row at all
+        # every id is -1 and the JAX scan reads its zero fill there; those
+        # rows are padding either way
+        has = sid >= 0
+        np.testing.assert_array_equal(
+            run_first(tv, torch.from_numpy(starts)).numpy()[has],
+            take_first(sid, v)[has])
+
+
+def test_window_restore_permutation_matches_sort():
+    """The restore scatter equals the JAX package's sort by the carried
+    original position (windows.py's restore step)."""
+    import jax
+
+    from harkdb_tpu_torch.plan.windows import restore_order
+
+    rng = np.random.default_rng(5)
+    n = 777
+    origpos = rng.permutation(n).astype(np.int32)
+    a = rng.integers(-9, 9, n).astype(np.int32)
+    b = rng.standard_normal(n).astype(np.float32)
+    want = jax.lax.sort([jnp.asarray(origpos), jnp.asarray(a),
+                         jnp.asarray(b)], num_keys=1, is_stable=False)[1:]
+    got = restore_order(torch.from_numpy(origpos),
+                        [torch.from_numpy(a), torch.from_numpy(b)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _set_tuples(rng, n):
+    """A packed tuple with duplicates: two value columns (one float) and
+    one NULL-indicator column whose NULL cells hold the value 0."""
+    k = rng.integers(0, 6, n).astype(np.int32)
+    f = rng.choice(np.float32([0.5, -1.0, 2.0]), n)
+    flag = (rng.random(n) < 0.8).astype(np.int32)
+    k = np.where(flag == 1, k, 0).astype(np.int32)
+    return [k, f, flag]
+
+
+def _union_plans():
+    from harkdb_tpu.config import DEFAULT_CONFIG as JCFG
+    from harkdb_tpu.plan.union_plan import UnionPlan as JUnion
+    from harkdb_tpu_torch.config import DEFAULT_CONFIG
+    from harkdb_tpu_torch.plan.union_plan import UnionPlan
+
+    ju = JUnion.__new__(JUnion)
+    ju.config = JCFG
+    tu = UnionPlan.__new__(UnionPlan)
+    tu.config = DEFAULT_CONFIG
+    return ju, tu
+
+
+def _same_tuples(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 400])
+def test_union_dedupe_matches_jax(n):
+    ju, tu = _union_plans()
+    cols = _set_tuples(np.random.default_rng(n), n)
+    got = tu._dedupe([torch.from_numpy(c) for c in cols], 1)
+    want = ju._dedupe([jnp.asarray(c) for c in cols], 1)
+    _same_tuples(got, want)
+
+
+@pytest.mark.parametrize("op", ["intersect", "except"])
+@pytest.mark.parametrize("na,nc", [(0, 5), (7, 0), (1, 1), (250, 180)])
+def test_union_set_combine_matches_jax(op, na, nc):
+    ju, tu = _union_plans()
+    rng = np.random.default_rng(na * 1000 + nc)
+    cols = [np.concatenate([a, c]) for a, c in
+            zip(_set_tuples(rng, na), _set_tuples(rng, nc))]
+    tag = np.concatenate([np.zeros(na, np.int32), np.ones(nc, np.int32)])
+    got = tu._set_combine([torch.from_numpy(c) for c in cols],
+                          torch.from_numpy(tag), op)
+    want = ju._set_combine([jnp.asarray(c) for c in cols],
+                           jnp.asarray(tag), op)
+    _same_tuples(got, want)

@@ -4,12 +4,16 @@ The same SQL runs through ``harkdb_tpu.Context`` (JAX on the CPU) and
 ``harkdb_tpu_torch.Context(device="cpu")`` over the same tables: the main
 query of the port's slice, the single-table corpus of tests/test_sql.py,
 the star join and the dense-key GROUP BY (rows and plan fields), TPC-H
-Q3's shape, ``explain`` of a 3-way join, error texts (compared verbatim),
-the features the port does not run yet (each raises PlanError naming
-itself), the two routes that carry the JAX package's tables over, and the
-import boundary (no jax). Integer outputs must be bit-identical; float32
-outputs use rtol=1e-6, atol=0. The join / NULL corpus is
-tests/test_torch_joins.py.
+Q3, Q4, Q5, Q13 and Q17's shapes, ``explain`` of a 3-way join, error texts
+(compared verbatim), one query of each nested feature (window functions,
+set operations, derived tables / CTEs / views, IN / EXISTS / scalar and
+correlated subqueries), the two routes that carry the JAX package's tables
+over, and the import boundary (no jax). Integer outputs must be
+bit-identical; float32 outputs use rtol=1e-6, atol=0. The join / NULL
+corpus is tests/test_torch_joins.py; the nested features' corpora are
+tests/test_torch_derived.py, test_torch_subqueries.py,
+test_torch_union.py, test_torch_windows.py and
+test_torch_windows_frames.py.
 """
 
 import os
@@ -189,20 +193,31 @@ UNPORTED = [
 
 @pytest.mark.parametrize("query,feature", UNPORTED)
 def test_unported_feature_raises(contexts, query, feature):
-    _j, p = contexts
-    with pytest.raises(PlanError) as e:
-        p.sql(query)
-    assert str(e.value) == f"{feature} is not supported by the torch port yet"
+    """Each of these once raised a PlanError naming ``feature``; the port
+    now runs it, and its output equals the JAX package's."""
+    j, p = contexts
+    _assert_same(j.sql(query), p.sql(query), query)
+    pd.testing.assert_frame_equal(p.sql_df(query), j.sql_df(query),
+                                  check_dtype=False, rtol=1e-6)
 
 
 def test_view_query_raises_but_create_works(contexts):
-    _j, p = contexts
-    p.create_view("vw", "select k, v from t where v > 0")
+    """Create a view, query it (equal to the JAX package), drop it; then
+    the query fails with the JAX package's error."""
+    j, p = contexts
+    q = "select k, count(*) as n from vw group by k order by k"
+    for c in (j, p):
+        c.create_view("vw", "select k, v from t where v > 0")
     try:
-        with pytest.raises(PlanError, match="views is not supported"):
-            p.sql("select k from vw")
+        _assert_same(j.sql(q), p.sql(q), q)
     finally:
-        p.drop_view("vw")
+        for c in (j, p):
+            c.drop_view("vw")
+    with pytest.raises(Exception) as ej:
+        j.sql(q)
+    with pytest.raises(PlanError) as ep:
+        p.sql(q)
+    assert str(ep.value) == str(ej.value) == "vw is not in tables"
 
 
 def test_explain_and_plan_cache(contexts):
@@ -378,6 +393,48 @@ def test_q3_shipping_priority_and_explain():
          "left join orders on customer.custkey = orders.custkey "
          "full outer join lineitem on orders.orderkey = lineitem.orderkey "
          "where lineitem.qty > 10 group by customer.nation")
+    assert p.explain(q) == j.explain(q)
+
+
+TPCH_NESTED = {
+    # tests/test_tpch_mini.py: EXISTS semi-join + grouped count
+    "q4": "select prio, count(*) as n from orders "
+          "where exists (select 1 from lineitem "
+          "where lineitem.orderkey = orders.orderkey and lineitem.qty > 40) "
+          "group by prio order by prio",
+    # a CTE over a join, grouped again with HAVING
+    "q5": "with rev as (select orders.custkey as ck, "
+          "sum(lineitem.price * lineitem.qty) as r from orders "
+          "join lineitem on orders.orderkey = lineitem.orderkey "
+          "group by orders.custkey) "
+          "select customer.nation, sum(rev.r) as vol from customer "
+          "join rev on customer.custkey = rev.ck "
+          "group by customer.nation having sum(rev.r) > 0 "
+          "order by vol desc, customer.nation limit 8",
+    # a grouped query over a grouped derived table over a LEFT JOIN
+    "q13": "select cnt, count(*) as custs from "
+           "(select customer.custkey as k, count(orders.orderkey) as cnt "
+           "from customer left join orders "
+           "on customer.custkey = orders.custkey "
+           "group by customer.custkey) d "
+           "group by cnt order by custs desc, cnt limit 10",
+    # a correlated scalar subquery, decorrelated into a grouped LEFT JOIN
+    "q17": "select sum(price) as total from lineitem l "
+           "where l.qty < (select avg(l2.qty) from lineitem l2 "
+           "where l2.partkey = l.partkey)",
+}
+
+
+@pytest.fixture(scope="module")
+def tpch_contexts():
+    return _pair(_tpch_tables())
+
+
+@pytest.mark.parametrize("name", sorted(TPCH_NESTED))
+def test_tpch_nested_shapes(tpch_contexts, name):
+    j, p = tpch_contexts
+    q = TPCH_NESTED[name]
+    _assert_plan_parity(j, p, q)
     assert p.explain(q) == j.explain(q)
 
 
