@@ -14,12 +14,17 @@ Phases, each printing its results on lines of its own:
      (one nvcc per source, all started together) and print the build time
      and ``-Xptxas -v`` report;
   3. hold each kernel against its plain PyTorch version on the card, on
-     edge cases and at the main paths' shapes (kernel A: 16,777,216 rows x
-     2 int32 columns; kernel B: the group-by's 8,388,608-row max scan, the
-     window query's running sum under the same ids and its running max
-     over one segment; kernel D: the star join's 8.4M unit segments into
-     2^23 slots and Q3's segments of about 4; kernel C: 2^23 rows at span
-     4096, span 16384 with three sum columns, and span 1), all bit-exact;
+     edge cases (lengths around the 4096-row tiles, tiles wholly past
+     n_valid, 41 columns for kernel A, 8 and 9 for kernel B, kernel B's
+     one-segment and reversed forms), where a decoupled look-back can go
+     wrong (one segment over 2048 tiles in both directions, all and no
+     rows kept, 2^26 rows, 50 repeats at 2^24 rows) and at the main paths'
+     shapes (kernel A: 16,777,216 rows x 2 int32 columns; kernel B: the
+     group-by's 8,388,608-row max scan, the window query's running sum
+     under the same ids and its running max / reversed min over one
+     segment; kernel D: the star join's 8.4M unit segments into 2^23 slots
+     and Q3's segments of about 4; kernel C: 2^23 rows at span 4096, span
+     16384 with three sum columns, and span 1), all bit-exact;
   4. run the main query through ``Context(device="cuda").sql`` on a
      2^24-row table and check it row for row against an independent numpy
      oracle, with every kernel launch counted;
@@ -36,9 +41,12 @@ Phases, each printing its results on lines of its own:
      window query is profiled;
   8. time phases 4-6 end to end (warm-up, then the median of 5), break the
      main query and the star join down by device kernel with
-     torch.profiler, time each kernel against its plain version with CUDA
-     events, and time kernel C against the sort path's group-by at spans
-     1024, 4096 and 16384 on 2^24 rows.
+     torch.profiler, time each kernel against its plain version, its
+     bound (the bytes its work must move at 3.35 TB/s) and, where one
+     PyTorch call computes the same function, that call (kernel A:
+     ``x2[:, mask]``; kernel B over one segment: ``torch.cummax``) with
+     CUDA events, and time kernel C against the sort path's group-by at
+     spans 1024, 4096 and 16384 on 2^24 rows.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -120,6 +128,12 @@ N_LINEITEM, N_ORDERS, N_CUSTOMER = 6_001_215, 1_500_000, 150_000
 # doubling scan; both are within float32 rounding of the exact sum, so the
 # difference is bounded relative to the scan of |x| over the segment.
 FLOAT_ADD_RTOL = 1e-4
+# Device-memory rate of an H100 SXM (HBM3, NVIDIA's data sheet): a
+# kernel's bound is the bytes its work must move over this rate.
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+# About 10 ms of device sleep (at up to 1.98 GHz) ahead of a timed run:
+# longer than the host needs to queue 20 wrapper calls.
+SLEEP_CYCLES = 20_000_000
 
 
 def log(msg: str) -> None:
@@ -163,17 +177,19 @@ def oracle(k: np.ndarray, v: np.ndarray, min_count: int = 0) -> np.ndarray:
 
 
 def ptxas_summary(build_log: str):
-    """One line per compiled kernel: its name (template arguments: op code
-    0 add / 1 max / 2 min / 3 mul, i int32 / f float32) and what
+    """One line per compiled kernel: its name with its template arguments
+    (segscan: op code 0 add / 1 max / 2 min / 3 mul, i int32 / f float32,
+    columns held; compact: 1 for the look-back launch) and what
     ``-Xptxas -v`` reported for registers, shared memory and spills."""
     name, spills = None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d)E(\w))?",
-                          m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)},{k.group(3)}>"
-                                  if k.group(2) else "")) if k else m.group(1)
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(I[^v]*)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E|([if])(?=L|E)",
+                              k.group(2) or "") if k else []
+            name = (k.group(1) + (f"<{','.join(a or b for a, b in args)}>"
+                                  if args else "")) if k else m.group(1)
         elif name and "spill" in line:
             spills = line.strip()
         elif name and "Used" in line:
@@ -211,9 +227,21 @@ def check_compact(compact, torch, dev, rng, n, sel, nv, ncols, floats):
                                  f"(n={n}, sel={sel}, n_valid={nv})")
 
 
+def scan_neutral(op, dtype):
+    ne = {"add": 0, "mul": 1}.get(op)
+    if ne is not None:
+        return ne
+    if dtype == "int32":
+        return -2**31 if op == "max" else 2**31 - 1
+    info = np.finfo(np.float32)
+    return float(info.min) if op == "max" else float(info.max)
+
+
 def check_segscan(segscan, torch, dev, rng, op, dtype, sid_np, ncols=1,
-                  nan=False):
-    n = sid_np.shape[0]
+                  nan=False, n=None, reverse=False):
+    """Kernel B against its plain version; ``sid_np=None`` is the
+    one-segment form (then ``n`` gives the length)."""
+    n = sid_np.shape[0] if sid_np is not None else n
     cols = []
     for _ in range(ncols):
         if dtype == "int32":
@@ -226,16 +254,10 @@ def check_segscan(segscan, torch, dev, rng, op, dtype, sid_np, ncols=1,
             if nan:
                 x[rng.random(n) < 0.01] = np.nan
         cols.append(torch.from_numpy(x).to(dev))
-    sid = torch.from_numpy(sid_np).to(dev)
-    ne = {"add": 0, "mul": 1}.get(op)
-    if ne is None:
-        if dtype == "int32":
-            ne = -2**31 if op == "max" else 2**31 - 1
-        else:
-            info = np.finfo(np.float32)
-            ne = float(info.min) if op == "max" else float(info.max)
-    got = segscan.flat_segscan(op, sid, cols, ne)
-    ref = segscan.flat_segscan_reference(op, sid, cols, ne)
+    sid = None if sid_np is None else torch.from_numpy(sid_np).to(dev)
+    ne = scan_neutral(op, dtype)
+    got = segscan.flat_segscan(op, sid, cols, ne, reverse=reverse)
+    ref = segscan.flat_segscan_reference(op, sid, cols, ne, reverse=reverse)
     torch.cuda.synchronize()
     for g, r, x in zip(got, ref, cols):
         if dtype == "int32":
@@ -244,46 +266,166 @@ def check_segscan(segscan, torch, dev, rng, op, dtype, sid_np, ncols=1,
             same = (g == r) | (torch.isnan(g) & torch.isnan(r))
         else:
             bound = (r.abs() if op == "mul" else
-                     segscan.flat_segscan_reference("add", sid, [x.abs()],
-                                                    0.0)[0])
+                     segscan.flat_segscan_reference(
+                         "add", sid, [x.abs()], 0.0, reverse=reverse)[0])
             diff = torch.where(g == r, torch.zeros_like(g), (g - r).abs())
             same = (diff <= FLOAT_ADD_RTOL * bound + 1e-6) | (
                 torch.isnan(g) & torch.isnan(r))
         if not bool(same.all()):
             raise AssertionError(f"segscan {op}/{dtype} differs from its "
-                                 f"plain version (n={n})")
+                                 f"plain version (n={n}, {ncols} columns, "
+                                 f"sid {'none' if sid is None else 'given'}, "
+                                 f"reverse={reverse})")
+
+
+# Lengths around the kernels' 4096-row tiles and the Pallas kernels' 16384.
+EDGE_LENGTHS = (1, 1000, 4095, 4096, 4097, 16384, 16385, 40000)
 
 
 def phase_kernels(torch, compact, segscan, dev):
     rng = np.random.default_rng(1)
     cases = 0
-    for n in (1, 1000, 16384, 16385, 40000):
+    for n in EDGE_LENGTHS:
         for sel in (0.0, 0.5, 1.0):
             for nv in sorted({n, max(0, n - 7), n // 2}):
                 check_compact(compact, torch, dev, rng, n, sel, nv, 3, True)
                 cases += 1
-    check_compact(compact, torch, dev, rng, 40000, 0.5, 39000, 40, False)
+    # Tiles wholly past n_valid still publish their status.
+    for nv in (0, 1, 4096 + 5):
+        check_compact(compact, torch, dev, rng, 10 * 4096 + 3, 0.5, nv, 2,
+                      False)
+        cases += 1
+    # 41 columns: a second column group reuses the first one's offsets.
+    check_compact(compact, torch, dev, rng, 40000, 0.5, 39000, 41, False)
     cases += 1
     log(f"kernel A edge cases: {cases} passed (bit-exact live rows)")
 
     cases = 0
-    for n in (1, 1000, 16384, 16385, 40000):
+    for n in EDGE_LENGTHS:
         sid_sorted = np.sort(rng.integers(0, max(1, n // 50), n)).astype(
             np.int32)
         layouts = {
-            "many": sid_sorted,
-            "one": np.zeros(n, np.int32),             # spans every tile
-            "none": np.full(n, -1, np.int32),         # no live row
+            "many": (sid_sorted, False),
+            "many, reversed": (sid_sorted[::-1].copy(), True),
+            "one": (np.zeros(n, np.int32), False),     # spans every tile
+            "none": (np.full(n, -1, np.int32), False),  # no live row
         }
-        for name, sid in layouts.items():
+        for name, (sid, rev) in layouts.items():
             for op in ("add", "max", "min", "mul"):
                 for dtype in ("int32", "float32"):
                     check_segscan(segscan, torch, dev, rng, op, dtype, sid,
-                                  ncols=2, nan=(name == "many"))
+                                  ncols=2, nan=name.startswith("many"),
+                                  reverse=rev)
                     cases += 1
+        for rev in (False, True):                       # sid=None
+            for op in ("add", "max", "min", "mul"):
+                for dtype in ("int32", "float32"):
+                    check_segscan(segscan, torch, dev, rng, op, dtype, None,
+                                  n=n, reverse=rev)
+                    cases += 1
+    # 8 columns share one launch; 9 take two.
+    for ncols in (8, 9):
+        for dtype in ("int32", "float32"):
+            check_segscan(segscan, torch, dev, rng, "max", dtype,
+                          np.sort(rng.integers(0, 300, 40000)).astype(
+                              np.int32), ncols=ncols, nan=True)
+            cases += 1
     log(f"kernel B edge cases: {cases} passed (integers and float "
         f"max/min exact; float add within {FLOAT_ADD_RTOL} of the |x| "
         f"scan, float mul within {FLOAT_ADD_RTOL} relative)")
+
+
+def _random_words(torch, dev, gen, n):
+    return torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                         device=dev, generator=gen)
+
+
+def _check_compact_pair(torch, compact, cols, mask, nv, what):
+    got, cnt = compact.flat_compact(cols, mask, nv)
+    ref, rcnt = compact.flat_compact_reference(cols, mask, nv)
+    c = int(rcnt)
+    if int(cnt) != c or not all(torch.equal(got[k][:c], ref[k][:c])
+                                for k in cols):
+        raise AssertionError(f"kernel A differs from its plain version "
+                             f"({what})")
+    return ref, c
+
+
+def phase_lookback(torch, compact, segscan, dev):
+    """Kernels A and B where a decoupled look-back can go wrong: one
+    segment over 2048 tiles (the longest wait chain) in both directions,
+    all and no rows kept, 2^26 rows (the having-10^8 shrink), and 50
+    repeats of the 2^24-row cases, each compared with the plain version
+    (a race shows as a rare mismatch). Data is made on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n = 1 << 23
+    x = _random_words(torch, dev, gen, n)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    for op in ("max", "min", "add"):
+        ne = scan_neutral(op, "int32")
+        for sid in (None, zeros):
+            for rev in (False, True):
+                got = segscan.flat_segscan(op, sid, [x], ne, reverse=rev)[0]
+                ref = segscan.flat_segscan_reference(op, sid, [x], ne,
+                                                     reverse=rev)[0]
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"kernel B differs over one segment of {n:,} rows "
+                        f"({op}, sid {'none' if sid is None else 'zeros'}, "
+                        f"reverse={rev})")
+    del x, zeros
+
+    n = 1 << 24
+    cols = {"a": _random_words(torch, dev, gen, n),
+            "b": _random_words(torch, dev, gen, n)}
+    for fill in (True, False):
+        mask = torch.full((n,), fill, dtype=torch.bool, device=dev)
+        for nv in (n, n - 3 * 4096 - 5):
+            nvt = torch.full((), nv, dtype=torch.int32, device=dev)
+            _check_compact_pair(torch, compact, cols, mask, nvt,
+                                f"{n:,} rows, all {'kept' if fill else 'dropped'}"
+                                f", n_valid {nv:,}")
+    mask = torch.rand(n, device=dev, generator=gen) < 0.5
+    nvt = torch.full((), n, dtype=torch.int32, device=dev)
+    ref, c = _check_compact_pair(torch, compact, cols, mask, nvt,
+                                 f"{n:,} rows")
+    for _ in range(50):
+        got, cnt = compact.flat_compact(cols, mask, nvt)
+        if int(cnt) != c or not all(torch.equal(got[k][:c], ref[k][:c])
+                                    for k in cols):
+            raise AssertionError(f"kernel A differs on a repeat at {n:,} "
+                                 f"rows")
+    sid = torch.sort(torch.randint(0, n // 8, (n,), dtype=torch.int32,
+                                   device=dev, generator=gen)).values
+    vals = cols["a"]
+    for s in (sid, None):
+        ref = segscan.flat_segscan_reference("max", s, [vals], -2**31)[0]
+        for _ in range(50):
+            got = segscan.flat_segscan("max", s, [vals], -2**31)[0]
+            if not torch.equal(got, ref):
+                raise AssertionError(f"kernel B differs on a repeat at "
+                                     f"{n:,} rows")
+    del cols, mask, sid, vals, ref, got
+
+    n = 1 << 26
+    cols = {"a": _random_words(torch, dev, gen, n),
+            "b": _random_words(torch, dev, gen, n)}
+    mask = torch.rand(n, device=dev, generator=gen) < 0.5
+    nvt = torch.full((), n - 12345, dtype=torch.int32, device=dev)
+    _check_compact_pair(torch, compact, cols, mask, nvt, f"{n:,} rows")
+    sid = torch.sort(torch.randint(0, n // 8, (n,), dtype=torch.int32,
+                                   device=dev, generator=gen)).values
+    got = segscan.flat_segscan("max", sid, [cols["a"]], -2**31)[0]
+    ref = segscan.flat_segscan_reference("max", sid, [cols["a"]], -2**31)[0]
+    if not torch.equal(got, ref):
+        raise AssertionError(f"kernel B differs at {n:,} rows")
+    del cols, mask, sid, got, ref
+    torch.cuda.empty_cache()
+    log("look-back cases: one segment over 2048 tiles (max/min/add, no sid "
+        "and zeros, both directions), all/none kept at 2^24 rows, 2^26 rows "
+        "(A and B), 50 repeats of A, B and one-segment B at 2^24 rows: "
+        "bit-exact")
 
 
 def check_main_compact(torch, compact, k, v, mask, n_valid) -> int:
@@ -679,14 +821,22 @@ def load_context(torch, H, tables):
     return ctx, time.perf_counter() - t0
 
 
+def reset_launches(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches(counters) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
 def check_query(ctx, counters, query, expect, need, name):
     """Run ``query`` through ``ctx.sql`` with every launch count set to 0
     just before; check it against ``expect`` and that each kernel in
     ``need`` launched at least that often. Returns the launch counts."""
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    reset_launches(counters)
     got = ctx.sql(query)
-    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    launches = read_launches(counters)
     if got.shape != expect.shape or not np.array_equal(got, expect):
         raise AssertionError(f"{name} differs from its numpy oracle: shape "
                              f"{got.shape} vs {expect.shape}")
@@ -706,18 +856,46 @@ def run_join_check(torch, H, counters, tables, query, expect, need, name):
     return ctx, check_query(ctx, counters, query, expect, need, name)
 
 
-def time_cuda(torch, fn, iters=20, warmup=3):
+def time_cuda(torch, fn, iters=20, warmup=3, host=False):
+    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
+    calls after ``warmup``. The calls are queued behind a device sleep, so
+    the wrapper's host work overlaps the sleep and the events measure the
+    device alone (a call that waits for the device, such as a boolean-mask
+    index, still pays its waits). With ``host``, also returns the host ms
+    per call spent queueing."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, host_ms) if host else ms
+
+
+def kernel_only_ms(torch, fn, name, iters=10):
+    """Mean device time in ms of the kernels whose name holds ``name``
+    over ``iters`` calls of ``fn``, from torch.profiler: the kernel alone,
+    without the wrapper's zero fill and the gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(times) / max(1, len(times)) / 1e3
 
 
 def time_query(torch, ctx, query, reps=5, run=None):
@@ -735,7 +913,7 @@ def time_query(torch, ctx, query, reps=5, run=None):
     return statistics.median(times), times
 
 
-def run_query_check(torch, H, compact, segscan, n, query, min_count):
+def run_query_check(torch, H, counters, n, query, min_count):
     k_np, v_np = table_data(n)
     ctx = H.Context(device="cuda")
     t0 = time.perf_counter()
@@ -743,11 +921,9 @@ def run_query_check(torch, H, compact, segscan, n, query, min_count):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     expect = oracle(k_np, v_np, min_count)
-    compact.LAUNCHES = 0
-    segscan.LAUNCHES = 0
+    reset_launches(counters)
     got = ctx.sql(query)
-    launches = {"flat_compact": compact.LAUNCHES,
-                "flat_segscan": segscan.LAUNCHES}
+    launches = read_launches(counters)
     if got.shape != expect.shape or not np.array_equal(got, expect):
         raise AssertionError(
             f"{n}-row query differs from the numpy oracle: shape "
@@ -820,7 +996,8 @@ def phase_nested(torch, H, counters):
     k_np, v_np = table_data(N_MAIN)
     cases = [
         (f"window_{N_MAIN}", WINDOW_QUERY, window_oracle(k_np, v_np),
-         {"flat_compact": 1, "flat_segscan": 2}),
+         {"flat_compact": 1, "flat_segscan": 2,
+          "flat_segscan_one_segment": 1}),
         (f"intersect_{N_MAIN}", SETOP_QUERY, setop_oracle(k_np, v_np),
          {"flat_compact": 3}),
     ]
@@ -843,6 +1020,39 @@ def phase_nested(torch, H, counters):
     del ctx, cases
     torch.cuda.empty_cache()
     return query_ms, launches
+
+
+def compact_bytes(torch, n_cols, mask, n_valid) -> int:
+    """Bytes kernel A's work must move: the mask, each 32-byte sector (8
+    rows) of each column that holds a kept row, and each kept word out."""
+    n = mask.shape[0]
+    keep = mask & (torch.arange(n, device=mask.device) < n_valid)
+    kept = int(keep.sum())
+    padded = torch.cat([keep, keep.new_zeros(-n % 8)])
+    sectors = int(padded.view(-1, 8).any(1).sum())
+    return n + n_cols * (32 * sectors + 4 * kept)
+
+
+def dense_agg_bytes(key, vals, mask, span) -> int:
+    """Bytes kernel C's work must move: key, mask and value columns in,
+    counts, sums and the key axis out."""
+    n = key.shape[0]
+    return (4 * n * (1 + len(vals)) + (0 if mask is None else n)
+            + 4 * span * (2 + len(vals)))
+
+
+def kernel_entry(name, source, replaces, launches, main_launches, err, ms,
+                 host_ms, plain_ms, nbytes, library_ms) -> dict:
+    """One kernel's row of the report; its bound is ``nbytes`` at the
+    card's memory rate."""
+    bound = nbytes / HBM_BYTES_PER_MS
+    return {"name": name, "route": "cuda",
+            "source": f"harkdb_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+            "main_launches": main_launches, "library_ms": library_ms,
+            "bytes": nbytes, "host_ms": host_ms}
 
 
 def main() -> int:
@@ -873,6 +1083,7 @@ def main() -> int:
 
     # -- phase 3: kernels vs plain versions --------------------------------------
     phase_kernels(torch, compact, segscan, dev)
+    phase_lookback(torch, compact, segscan, dev)
     (k, v, mask), (sid, vals) = main_shapes(torch, dev)
     n_valid = torch.full((), k.shape[0], dtype=torch.int32, device=dev)
     a_err = check_main_compact(torch, compact, k, v, mask, n_valid)
@@ -881,18 +1092,25 @@ def main() -> int:
     torch.cuda.synchronize()
     b_err = int((got_b - ref_b).abs().max())
     # The window query's shapes: its running sum under the same partition
-    # ids, and a running max over one segment (prims/scan.running_max).
-    one_seg = torch.zeros_like(sid)
-    for op, seg, ne in (("add", sid, 0), ("max", one_seg, -2**31)):
-        got_w = segscan.flat_segscan(op, seg, [vals], ne)[0]
-        ref_w = segscan.flat_segscan_reference(op, seg, [vals], ne)[0]
+    # ids, and the running max / min (prims/scan) over one segment.
+    one_err = 0
+    for op, seg, ne, rev in (("add", sid, 0, False),
+                             ("max", None, -2**31, False),
+                             ("min", None, 2**31 - 1, True)):
+        got_w = segscan.flat_segscan(op, seg, [vals], ne, reverse=rev)[0]
+        ref_w = segscan.flat_segscan_reference(op, seg, [vals], ne,
+                                               reverse=rev)[0]
         torch.cuda.synchronize()
-        b_err = max(b_err, int((got_w - ref_w).abs().max()))
-    if b_err:
+        err = int((got_w.to(torch.int64) - ref_w.to(torch.int64)).abs().max())
+        if seg is None:
+            one_err = max(one_err, err)
+        else:
+            b_err = max(b_err, err)
+    if b_err or one_err:
         raise AssertionError("kernel B differs at the main path's shapes")
     log(f"kernel A at {k.shape[0]:,} rows x 2 int32: bit-exact; kernel B "
-        f"max and add under the group ids, and max over one segment, at "
-        f"{sid.shape[0]:,} rows: bit-exact")
+        f"max and add under the group ids, max and reversed min over one "
+        f"segment, at {sid.shape[0]:,} rows: bit-exact")
     phase_kernels_cd(torch, expand, matmul_agg, dev)
     d_star, d_q3, c_main = cd_shapes(torch, dev)
     d_err, c_err, c_one, c_wide = check_cd_main(
@@ -904,13 +1122,19 @@ def main() -> int:
         f"columns, span 1: bit-exact")
 
     # -- phases 4 and 5: the main path ------------------------------------------
-    ctx, launches = run_query_check(torch, H, compact, segscan, N_MAIN,
-                                    MAIN_QUERY, 0)
+    counters = {"flat_compact": (compact, "LAUNCHES"),
+                "flat_segscan": (segscan, "LAUNCHES"),
+                "flat_segscan_one_segment": (segscan,
+                                             "ONE_SEGMENT_LAUNCHES"),
+                "onehot_groupby_sums": (matmul_agg, "LAUNCHES"),
+                "expand_fills": (expand, "LAUNCHES")}
+    ctx, launches = run_query_check(torch, H, counters, N_MAIN, MAIN_QUERY,
+                                    0)
     main_ms, main_all = time_query(torch, ctx, MAIN_QUERY)
     profile_query(torch, ctx, MAIN_QUERY)
     del ctx
     torch.cuda.empty_cache()
-    big, big_launches = run_query_check(torch, H, compact, segscan, N_LARGE,
+    big, big_launches = run_query_check(torch, H, counters, N_LARGE,
                                         HAVING_QUERY, 48)
     big_ms, big_all = time_query(torch, big, HAVING_QUERY)
     del big
@@ -921,13 +1145,12 @@ def main() -> int:
         f"({N_LARGE / big_ms / 1e3:.1f} M rows/s) of {big_all}")
 
     # -- phase 6: the star join and TPC-H Q3 ------------------------------------
-    counters = {"flat_compact": compact, "flat_segscan": segscan,
-                "onehot_groupby_sums": matmul_agg, "expand_fills": expand}
     facts, dims = star_data()
     star, star_launches = run_join_check(
         torch, H, counters, {"facts": facts, "dims": dims}, STAR_QUERY,
         star_oracle(facts, dims),
-        {"flat_compact": 4, "onehot_groupby_sums": 1, "expand_fills": 1},
+        {"flat_compact": 4, "onehot_groupby_sums": 1, "expand_fills": 1,
+         "flat_segscan_one_segment": 1},
         f"star join ({N_MAIN:,} facts x {N_KEYS:,} dims)")
     plan = star._plan(STAR_QUERY)
     if plan.last_fast_span != DIM_SPAN:
@@ -956,28 +1179,45 @@ def main() -> int:
     # -- phase 7: nested queries, windows and set operations --------------------
     nested_ms, nested_launches = phase_nested(torch, H, counters)
 
-    # -- phase 8: kernels against their plain versions, CUDA events --------------
+    # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}
-    a_ms = time_cuda(torch, lambda: compact.flat_compact(cols, mask, n_valid))
+    a_ms, a_host = time_cuda(
+        torch, lambda: compact.flat_compact(cols, mask, n_valid), host=True)
     a_plain = time_cuda(
         torch, lambda: compact.flat_compact_reference(cols, mask, n_valid))
-    b_ms = time_cuda(
-        torch, lambda: segscan.flat_segscan("max", sid, [vals], -2**31))
+    x2 = torch.stack([k, v])            # built outside the timed region
+    a_lib = time_cuda(torch, lambda: x2[:, mask])
+    del x2
+    b_ms, b_host = time_cuda(
+        torch, lambda: segscan.flat_segscan("max", sid, [vals], -2**31),
+        host=True)
     b_plain = time_cuda(
         torch,
         lambda: segscan.flat_segscan_reference("max", sid, [vals], -2**31))
-    log(f"kernel A {a_ms:.4f} ms vs plain {a_plain:.4f} ms; kernel B "
-        f"{b_ms:.4f} ms vs plain {b_plain:.4f} ms")
-    d_ms = time_cuda(torch, lambda: expand.expand_fills(*d_star))
+    o_ms, o_host = time_cuda(
+        torch, lambda: segscan.flat_segscan("max", None, [vals], -2**31),
+        host=True)
+    o_plain = time_cuda(
+        torch,
+        lambda: segscan.flat_segscan_reference("max", None, [vals], -2**31))
+    o_lib = time_cuda(torch, lambda: torch.cummax(vals, 0))
+    log(f"kernel A {a_ms:.4f} ms (host {a_host:.4f} ms a call) vs plain "
+        f"{a_plain:.4f} ms vs x2[:, mask] {a_lib:.4f} ms; kernel B "
+        f"{b_ms:.4f} ms (host {b_host:.4f}) vs plain {b_plain:.4f} ms; "
+        f"kernel B over one segment {o_ms:.4f} ms (host {o_host:.4f}) vs "
+        f"plain {o_plain:.4f} ms vs torch.cummax {o_lib:.4f} ms")
+    d_ms, d_host = time_cuda(torch, lambda: expand.expand_fills(*d_star),
+                             host=True)
     d_plain = time_cuda(torch, lambda: expand.expand_fills_reference(*d_star))
     dq_ms = time_cuda(torch, lambda: expand.expand_fills(*d_q3))
     dq_plain = time_cuda(torch,
                          lambda: expand.expand_fills_reference(*d_q3))
-    log(f"kernel D star join {d_ms:.4f} ms vs plain {d_plain:.4f} ms; Q3 "
-        f"shape {dq_ms:.4f} ms vs plain {dq_plain:.4f} ms")
+    log(f"kernel D star join {d_ms:.4f} ms (host {d_host:.4f}) vs plain "
+        f"{d_plain:.4f} ms; Q3 shape {dq_ms:.4f} ms vs plain {dq_plain:.4f} "
+        f"ms")
     ckey, cvals, cnv, ckmin, cspan, cmask = c_main
-    c_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
-        ckey, cvals, cnv, ckmin, cspan, mask=cmask))
+    c_ms, c_host = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        ckey, cvals, cnv, ckmin, cspan, mask=cmask), host=True)
     c_plain = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums_reference(
         ckey, cvals, cnv, ckmin, cspan, mask=cmask))
     one_k, one_v, one_nv = c_one
@@ -992,10 +1232,12 @@ def main() -> int:
     cw_plain = time_cuda(
         torch, lambda: matmul_agg.onehot_groupby_sums_reference(
             w_k, w_v, w_nv, 0, 16384))
+    cw_bound = dense_agg_bytes(w_k, w_v, None, 16384) / HBM_BYTES_PER_MS
     log(f"kernel C at {ckey.shape[0]:,} rows: span 4096 + mask {c_ms:.4f} "
-        f"ms vs plain {c_plain:.4f} ms; span 1 {c1_ms:.4f} ms vs plain "
-        f"{c1_plain:.4f} ms; span 16384 x 3 sum columns {cw_ms:.4f} ms vs "
-        f"plain {cw_plain:.4f} ms")
+        f"ms (host {c_host:.4f}) vs plain {c_plain:.4f} ms; span 1 "
+        f"{c1_ms:.4f} ms vs plain {c1_plain:.4f} ms; span 16384 x 3 sum "
+        f"columns {cw_ms:.4f} ms vs plain {cw_plain:.4f} ms (bound "
+        f"{cw_bound:.4f} ms, {cw_bound / cw_ms:.3f} of it)")
     # Kernel C against the sort path's group-by (sum + count) on 2^24 rows:
     # the measurement a later PR needs to re-derive MAX_KEY_SPAN.
     n24 = torch.full((), N_MAIN, dtype=torch.int32, device=dev)
@@ -1012,33 +1254,62 @@ def main() -> int:
         log(f"GROUP BY sum+count at {N_MAIN:,} rows, span {span}: kernel C "
             f"{dense_ms:.4f} ms vs sort path {sort_ms:.4f} ms")
 
+    kernel_ms = {
+        "flat_compact": kernel_only_ms(
+            torch, lambda: compact.flat_compact(cols, mask, n_valid),
+            "compact_kernel"),
+        "flat_segscan": kernel_only_ms(
+            torch, lambda: segscan.flat_segscan("max", sid, [vals], -2**31),
+            "segscan_kernel"),
+        "flat_segscan_one_segment": kernel_only_ms(
+            torch, lambda: segscan.flat_segscan("max", None, [vals], -2**31),
+            "segscan_kernel"),
+        "onehot_groupby_sums": kernel_only_ms(
+            torch, lambda: matmul_agg.onehot_groupby_sums(
+                ckey, cvals, cnv, ckmin, cspan, mask=cmask),
+            "dense_agg_kernel"),
+        "expand_fills": kernel_only_ms(
+            torch, lambda: expand.expand_fills(*d_star), "expand_kernel"),
+    }
+    log(f"kernels alone (torch.profiler, ms): {kernel_ms}")
+    n_b = sid.shape[0]
+    _offs, d_nsrc, d_cap, d_extras = d_star
     report = {"kernels": [
-        {"name": "flat_compact", "route": "cuda",
-         "source": "harkdb_tpu_torch/csrc/compact.cu",
-         "replaces": "harkdb_tpu/kernels/compact.py:199",
-         "launches": launches["flat_compact"], "max_abs_err": a_err,
-         "ms": a_ms, "plain_ms": a_plain},
-        {"name": "flat_segscan", "route": "cuda",
-         "source": "harkdb_tpu_torch/csrc/segscan.cu",
-         "replaces": "harkdb_tpu/kernels/segscan.py:143",
-         "launches": launches["flat_segscan"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain},
-        {"name": "onehot_groupby_sums", "route": "cuda",
-         "source": "harkdb_tpu_torch/csrc/dense_agg.cu",
-         "replaces": "harkdb_tpu/kernels/matmul_agg.py:134",
-         "launches": star_launches["onehot_groupby_sums"],
-         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain},
-        {"name": "expand_fills", "route": "cuda",
-         "source": "harkdb_tpu_torch/csrc/expand.cu",
-         "replaces": "harkdb_tpu/kernels/expand.py:177",
-         "launches": star_launches["expand_fills"],
-         "max_abs_err": d_err, "ms": d_ms, "plain_ms": d_plain},
+        kernel_entry("flat_compact", "compact.cu",
+                     "harkdb_tpu/kernels/compact.py:199",
+                     launches["flat_compact"], launches["flat_compact"],
+                     a_err, a_ms, a_host, a_plain,
+                     compact_bytes(torch, 2, mask, n_valid), a_lib),
+        kernel_entry("flat_segscan", "segscan.cu",
+                     "harkdb_tpu/kernels/segscan.py:143",
+                     launches["flat_segscan"], launches["flat_segscan"],
+                     b_err, b_ms, b_host, b_plain, 4 * n_b * 3, None),
+        kernel_entry("flat_segscan_one_segment", "segscan.cu",
+                     "harkdb_tpu/kernels/segscan.py:143",
+                     star_launches["flat_segscan_one_segment"],
+                     launches["flat_segscan_one_segment"],
+                     one_err, o_ms, o_host, o_plain, 4 * n_b * 2, o_lib),
+        kernel_entry("onehot_groupby_sums", "dense_agg.cu",
+                     "harkdb_tpu/kernels/matmul_agg.py:134",
+                     star_launches["onehot_groupby_sums"],
+                     launches["onehot_groupby_sums"], c_err, c_ms, c_host,
+                     c_plain, dense_agg_bytes(ckey, cvals, cmask, cspan),
+                     None),
+        kernel_entry("expand_fills", "expand.cu",
+                     "harkdb_tpu/kernels/expand.py:177",
+                     star_launches["expand_fills"], launches["expand_fills"],
+                     d_err, d_ms, d_host, d_plain,
+                     4 * int(d_nsrc) * (1 + len(d_extras))
+                     + 4 * d_cap * (2 + len(d_extras)), None),
     ], "query_ms": {"rows_16777216": main_ms, "rows_100000000": big_ms,
                     "star_join": star_ms, "tpch_q3_sf1": q3_ms, **nested_ms},
-        "launches": {"rows_100000000": big_launches,
+        "launches": {"rows_16777216": launches,
+                     "rows_100000000": big_launches,
                      "star_join": star_launches, "tpch_q3_sf1": q3_launches,
                      **nested_launches},
         "dense_vs_sort_ms": vs_sort}
+    for entry in report["kernels"]:
+        entry["kernel_ms"] = kernel_ms[entry["name"]]
     log(json.dumps(report))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -37,15 +37,14 @@ _I32 = ctypes.c_int32
 _SIGNATURES = {
     "harkdb_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     "harkdb_compact_num_tiles": (_I64, [_I64]),
-    "harkdb_compact_count": (ctypes.c_int, [_P, _P, _I64, _P, _P]),
-    "harkdb_compact_scatter": (
-        ctypes.c_int, [_P, _P, _I64, _P, ctypes.c_int, _P, _P, _P],
+    "harkdb_compact": (
+        ctypes.c_int, [_P, _P, _I64, ctypes.c_int, _P, _P, _P, _P, _P, _P],
     ),
-    "harkdb_segscan_num_tiles": (_I64, [_I64]),
+    "harkdb_segscan_scratch_words": (_I64, [_I64, ctypes.c_int]),
     "harkdb_segscan": (
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int, _P, _I64, ctypes.c_int, _P, _P, _I32,
-         _P, _P, _P, _P, _P],
+         ctypes.c_int, _P, _P],
     ),
     "harkdb_expand_fills": (
         ctypes.c_int,

@@ -20,8 +20,11 @@ import torch
 
 from harkdb_tpu_torch.kernels import _lib
 
-#: Number of times ``flat_compact`` launched its kernel pair in this process.
+#: Number of kernel launches ``flat_compact`` made in this process: one per
+#: call, and one more for each further group of 32 columns.
 LAUNCHES = 0
+
+_COLS_PER_LAUNCH = 32
 
 _WORD_DTYPES = (torch.int32, torch.float32)
 
@@ -50,7 +53,7 @@ def flat_compact(cols: Dict[str, torch.Tensor], mask: torch.Tensor,
 
     Returns ``(cols_out, count)`` with ``count`` a 0-d int32 tensor on the
     columns' device. CPU tensors take :func:`flat_compact_reference`; CUDA
-    tensors launch the kernel (no host synchronisation) or raise.
+    tensors launch the one-pass kernel (no host synchronisation) or raise.
     """
     _check_inputs(cols, mask, n_valid)
     dev = mask.device
@@ -72,20 +75,21 @@ def flat_compact(cols: Dict[str, torch.Tensor], mask: torch.Tensor,
     if tiles == 0:
         return ({k: o.view(cols[k].dtype) for k, o in zip(names, outs)},
                 torch.zeros((), dtype=torch.int32, device=dev))
-    stream = _lib.stream_handle(dev)
-    counts = torch.empty(tiles, dtype=torch.int32, device=dev)
-    _lib.check(lib.harkdb_compact_count(
-        mask.data_ptr(), n_valid.data_ptr(), n, counts.data_ptr(), stream,
-    ), "compact count kernel")
-    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=dev)
+    groups = max(1, -(-len(ins) // _COLS_PER_LAUNCH))
+    offsets = (torch.empty(tiles, dtype=torch.int32, device=dev)
+               if groups > 1 else None)
     in_ptrs, out_ptrs = _lib.pointer_array(ins), _lib.pointer_array(outs)
-    _lib.check(lib.harkdb_compact_scatter(
-        mask.data_ptr(), n_valid.data_ptr(), n, ends.data_ptr(), len(ins),
-        in_ptrs, out_ptrs, stream,
-    ), "compact scatter kernel")
-    LAUNCHES += 1
+    _lib.check(lib.harkdb_compact(
+        mask.data_ptr(), n_valid.data_ptr(), n, len(ins), in_ptrs, out_ptrs,
+        count.data_ptr(), scratch.data_ptr(),
+        None if offsets is None else offsets.data_ptr(),
+        _lib.stream_handle(dev),
+    ), "compact kernel")
+    LAUNCHES += groups
     out = {k: o.view(cols[k].dtype) for k, o in zip(names, outs)}
-    return out, ends[-1]
+    return out, count
 
 
 def flat_compact_reference(cols: Dict[str, torch.Tensor], mask: torch.Tensor,

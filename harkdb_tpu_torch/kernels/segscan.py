@@ -8,6 +8,12 @@ get ``op(value, neutral)``. Integer results are exact (add and mul wrap mod
 2^32); float ``add`` combines in another order than the plain version and
 may differ in the last bits.
 
+Two forms serve the running max / min (``prims/scan.py``): ``sid=None`` is
+one segment (sid 0 on every row, none read), and ``reverse=True`` scans
+from the last row to the first, so ``out[i]`` covers ``x[i:]`` (the
+flip / scan / flip pattern); with a sid, the sid is then non-decreasing
+from the last row to the first.
+
 ``flat_segscan`` launches the CUDA kernel for CUDA tensors and raises on
 anything it does not take. ``flat_segscan_reference`` is the plain PyTorch
 version: a log-doubling scan (``prims.segmented.doubling_segmented_scan``)
@@ -18,15 +24,20 @@ kernel is compared and timed against on the card.
 from __future__ import annotations
 
 import struct
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from harkdb_tpu_torch.kernels import _lib
 from harkdb_tpu_torch.prims.segmented import doubling_segmented_scan
 
-#: Number of times ``flat_segscan`` launched its kernels in this process.
+#: Number of kernel launches ``flat_segscan`` made in this process: one per
+#: group of up to 8 columns.
 LAUNCHES = 0
+#: The launches of those with ``sid=None`` (one segment).
+ONE_SEGMENT_LAUNCHES = 0
+
+_COLS_PER_LAUNCH = 8
 
 OPS = {
     "add": torch.add,
@@ -38,15 +49,17 @@ _OP_CODE = {"add": 0, "max": 1, "min": 2, "mul": 3}
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 
-def _check_inputs(op_name: str, sid: torch.Tensor,
+def _check_inputs(op_name: str, sid: Optional[torch.Tensor],
                   cols: Sequence[torch.Tensor]) -> None:
     if op_name not in OPS:
         raise ValueError(f"unknown scan op {op_name!r}")
-    if sid.dim() != 1 or sid.dtype != torch.int32:
-        raise ValueError("sid must be a 1-D int32 tensor")
     if not cols:
         raise ValueError("flat_segscan needs at least one column")
-    n = sid.shape[0]
+    n = cols[0].shape[0] if cols[0].dim() == 1 else -1
+    if sid is not None and (sid.dim() != 1 or sid.dtype != torch.int32
+                            or sid.shape[0] != n):
+        raise ValueError("sid must be None or a 1-D int32 tensor as long as "
+                         "the columns")
     dt = cols[0].dtype
     for c in cols:
         if c.dim() != 1 or c.shape[0] != n:
@@ -66,60 +79,77 @@ def _neutral_bits(neutral, dtype: torch.dtype) -> int:
     return v
 
 
-def flat_segscan(op_name: str, sid: torch.Tensor,
-                 cols: Sequence[torch.Tensor], neutral) -> List[torch.Tensor]:
-    """Inclusive segmented scan of each column under the shared ``sid``.
+def flat_segscan(op_name: str, sid: Optional[torch.Tensor],
+                 cols: Sequence[torch.Tensor], neutral,
+                 reverse: bool = False) -> List[torch.Tensor]:
+    """Inclusive segmented scan of each column under the shared ``sid``
+    (one segment if ``sid`` is None), from the last row if ``reverse``.
 
     CPU tensors take :func:`flat_segscan_reference`; CUDA tensors launch
-    the kernel (three passes per column, no host synchronisation) or raise.
+    the one-pass kernel (one launch per 8 columns, no host
+    synchronisation) or raise.
     """
     cols = list(cols)
     _check_inputs(op_name, sid, cols)
-    dev = sid.device
-    if any(c.device != dev for c in cols):
+    dev = cols[0].device
+    if any(t.device != dev for t in cols + ([] if sid is None else [sid])):
         raise ValueError("sid and the columns must share a device")
     if dev.type == "cpu":
-        return flat_segscan_reference(op_name, sid, cols, neutral)
+        return flat_segscan_reference(op_name, sid, cols, neutral, reverse)
     if dev.type != "cuda":
         raise ValueError(f"flat_segscan runs on CUDA or CPU, not {dev}")
-    global LAUNCHES
+    global LAUNCHES, ONE_SEGMENT_LAUNCHES
     lib = _lib.library()
-    n = sid.shape[0]
+    n = cols[0].shape[0]
     dtype = cols[0].dtype
-    sid = sid.contiguous()
+    sid = None if sid is None else sid.contiguous()
     ins = [c.contiguous() for c in cols]
     outs = [torch.empty_like(c) for c in ins]
-    tiles = lib.harkdb_segscan_num_tiles(n)
-    if tiles == 0:
+    if n == 0:
         return outs
-    tile_sid = torch.empty(tiles, dtype=torch.int32, device=dev)
-    tile_val = torch.empty(tiles, dtype=dtype, device=dev)
-    carry_sid = torch.empty(tiles, dtype=torch.int32, device=dev)
-    carry_val = torch.empty(tiles, dtype=dtype, device=dev)
-    in_ptrs, out_ptrs = _lib.pointer_array(ins), _lib.pointer_array(outs)
-    _lib.check(lib.harkdb_segscan(
-        _OP_CODE[op_name], _DTYPE_CODE[dtype], sid.data_ptr(), n, len(ins),
-        in_ptrs, out_ptrs, _neutral_bits(neutral, dtype),
-        tile_sid.data_ptr(), tile_val.data_ptr(), carry_sid.data_ptr(),
-        carry_val.data_ptr(), _lib.stream_handle(dev),
-    ), f"segscan kernel ({op_name}, {dtype})")
-    LAUNCHES += 1
+    stream = _lib.stream_handle(dev)
+    for g in range(0, len(ins), _COLS_PER_LAUNCH):
+        group_in = ins[g:g + _COLS_PER_LAUNCH]
+        group_out = outs[g:g + _COLS_PER_LAUNCH]
+        scratch = torch.zeros(
+            lib.harkdb_segscan_scratch_words(n, len(group_in)),
+            dtype=torch.int64, device=dev)
+        in_ptrs = _lib.pointer_array(group_in)
+        out_ptrs = _lib.pointer_array(group_out)
+        _lib.check(lib.harkdb_segscan(
+            _OP_CODE[op_name], _DTYPE_CODE[dtype],
+            None if sid is None else sid.data_ptr(), n, len(group_in),
+            in_ptrs, out_ptrs, _neutral_bits(neutral, dtype), int(reverse),
+            scratch.data_ptr(), stream,
+        ), f"segscan kernel ({op_name}, {dtype})")
+        LAUNCHES += 1
+        if sid is None:
+            ONE_SEGMENT_LAUNCHES += 1
     return outs
 
 
-def flat_segscan_reference(op_name: str, sid: torch.Tensor,
-                           cols: Sequence[torch.Tensor],
-                           neutral) -> List[torch.Tensor]:
+def flat_segscan_reference(op_name: str, sid: Optional[torch.Tensor],
+                           cols: Sequence[torch.Tensor], neutral,
+                           reverse: bool = False) -> List[torch.Tensor]:
     """Plain PyTorch version of :func:`flat_segscan`.
 
-    The doubling scan runs on ``sid + 1``: its out-of-range fill id is -1,
-    which then never equals a row's id (ids are >= -1), so each row
-    combines exactly the earlier rows of its own segment. The carry's
-    start value is folded into the sid -1 rows afterwards, as the kernel
-    does.
+    ``sid=None`` is sid 0 on every row; ``reverse`` flips the inputs, scans
+    and flips the results back. The doubling scan runs on ``sid + 1``: its
+    out-of-range fill id is -1, which then never equals a row's id (ids
+    are >= -1), so each row combines exactly the earlier rows of its own
+    segment. The carry's start value is folded into the sid -1 rows
+    afterwards, as the kernel does.
     """
     cols = list(cols)
     _check_inputs(op_name, sid, cols)
+    if sid is None:
+        sid = torch.zeros(cols[0].shape[0], dtype=torch.int32,
+                          device=cols[0].device)
+    if reverse:
+        outs = flat_segscan_reference(
+            op_name, torch.flip(sid, [0]), [torch.flip(c, [0]) for c in cols],
+            neutral)
+        return [torch.flip(o, [0]) for o in outs]
     op = OPS[op_name]
     shifted = sid + 1
     lead = sid == -1

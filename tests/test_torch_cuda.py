@@ -1,7 +1,8 @@
 """harkdb_tpu_torch's CUDA kernels on the card (marker ``gpu``).
 
 Repeats chip_smoke.py's phase 3 — each kernel held against its plain
-PyTorch version on edge cases and at the main paths' shapes — holds the
+PyTorch version on edge cases, where a decoupled look-back can go wrong
+and at the main paths' shapes — holds the
 running max / min (kernel B over one segment) against ``torch.cummax`` /
 ``torch.cummin``, and checks the main query, the joins, the dense-key
 GROUP BY and the nested queries (windows, set operations, a CTE, EXISTS,
@@ -36,6 +37,15 @@ def test_kernel_edge_cases(cuda):
     from harkdb_tpu_torch.kernels import compact, segscan
 
     chip_smoke.phase_kernels(torch, compact, segscan, cuda)
+
+
+def test_kernels_where_a_look_back_can_fail(cuda):
+    """One segment over 2048 tiles both ways, all / no rows kept, 2^26
+    rows and 50 repeats at 2^24 rows, each against the plain version."""
+    import chip_smoke
+    from harkdb_tpu_torch.kernels import compact, segscan
+
+    chip_smoke.phase_lookback(torch, compact, segscan, cuda)
 
 
 def test_kernels_at_main_path_shapes(cuda):
@@ -75,12 +85,15 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
     from harkdb_tpu_torch.kernels import compact, segscan
 
     x = torch.arange(10, dtype=torch.int32, device=cuda)
-    before = (compact.LAUNCHES, segscan.LAUNCHES)
+    before = (compact.LAUNCHES, segscan.LAUNCHES,
+              segscan.ONE_SEGMENT_LAUNCHES)
     compact.flat_compact({"x": x}, x > 3,
                          torch.full((), 10, dtype=torch.int32, device=cuda))
     segscan.flat_segscan("add", torch.zeros_like(x), [x], 0)
-    assert (compact.LAUNCHES, segscan.LAUNCHES) == (before[0] + 1,
-                                                    before[1] + 1)
+    segscan.flat_segscan("max", None, [x], -2**31, reverse=True)
+    assert (compact.LAUNCHES, segscan.LAUNCHES,
+            segscan.ONE_SEGMENT_LAUNCHES) == (before[0] + 1, before[1] + 2,
+                                              before[2] + 1)
 
 
 def test_kernels_c_d_edge_cases(cuda):

@@ -33,6 +33,9 @@ jax_doubling = jax.jit(doubling_segmented_scan, static_argnums=0)
 from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
 
 SIZES = [1, 1000, 16384, 16385, 40000]
+# Lengths around the CUDA kernels' 4096-row tiles.
+TILE_LENGTHS = [1, 4095, 4096, 4097, 3 * 4096 + 5]
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 _JNP_OPS = {"add": jnp.add, "max": jnp.maximum, "min": jnp.minimum,
             "mul": jnp.multiply}
 
@@ -44,6 +47,14 @@ def _neutral(op, dtype):
         return -(2**31) if op == "max" else 2**31 - 1
     info = np.finfo(np.float32)
     return float(info.min) if op == "max" else float(info.max)
+
+
+def _edge_int32(rng, n) -> np.ndarray:
+    x = rng.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32)
+    x[rng.random(n) < 0.05] = I32_MIN
+    x[rng.random(n) < 0.05] = I32_MAX
+    x[0] = (I32_MIN, I32_MAX)[n % 2]
+    return x
 
 
 def _bits(a) -> np.ndarray:
@@ -80,6 +91,25 @@ class TestCompactReference:
             np.testing.assert_array_equal(
                 _bits(got[name].numpy()[:c]), _bits(np.asarray(exp[name])[:c])
             )
+
+    @pytest.mark.parametrize("n", TILE_LENGTHS)
+    @pytest.mark.parametrize("n_valid", ["n - 1", "n // 2"])
+    def test_tile_lengths_vs_pallas_interpret(self, n, n_valid):
+        """Count and packed rows with n_valid below n, at lengths around
+        the CUDA kernel's tiles."""
+        rng = np.random.default_rng(n)
+        x = _edge_int32(rng, n)
+        mask = rng.random(n) < 0.5
+        nv = max(0, n - 1) if n_valid == "n - 1" else n // 2
+        got, cnt = compact.flat_compact_reference(
+            {"x": torch.from_numpy(x)}, torch.from_numpy(mask),
+            torch.tensor(nv, dtype=torch.int32))
+        exp, ecnt = jax_flat_compact({"x": jnp.asarray(x)}, jnp.asarray(mask),
+                                     jnp.int32(nv), interpret=True)
+        c = int(ecnt)
+        assert int(cnt) == c == int((mask[:nv]).sum())
+        np.testing.assert_array_equal(got["x"].numpy()[:c],
+                                      np.asarray(exp["x"])[:c])
 
     def test_wrapper_takes_plain_version_on_cpu(self, rng):
         n = 5000
@@ -172,6 +202,41 @@ class TestSegscanReference:
                 np.testing.assert_array_equal(got, exp)
             else:
                 np.testing.assert_allclose(got, exp, rtol=1e-6, atol=0)
+
+    @pytest.mark.parametrize("reverse", [False, True])
+    @pytest.mark.parametrize("op", ["max", "min"])
+    @pytest.mark.parametrize("n", TILE_LENGTHS)
+    def test_one_segment_vs_lax(self, n, op, reverse):
+        """sid=None is one segment and reverse scans from the last row:
+        the JAX package's lax.cummax / lax.cummin and
+        jnp.flip(lax.cummin(jnp.flip(x))), on int32 edge values; the
+        wrapper takes the same plain version on the CPU."""
+        x = _edge_int32(np.random.default_rng(n), n)
+        ne = _neutral(op, np.int32)
+        scan = jax.lax.cummax if op == "max" else jax.lax.cummin
+        xj = jnp.asarray(x)
+        exp = np.asarray(jnp.flip(scan(jnp.flip(xj))) if reverse
+                         else scan(xj))
+        for fn in (segscan.flat_segscan_reference, segscan.flat_segscan):
+            got = fn(op, None, [torch.from_numpy(x)], ne, reverse=reverse)[0]
+            np.testing.assert_array_equal(got.numpy(), exp)
+
+    @pytest.mark.parametrize("op", ["add", "max"])
+    def test_reverse_with_sid_vs_pallas_interpret(self, op):
+        """reverse=True with a sid that is non-decreasing from the last row
+        to the first: the Pallas kernel on the flipped inputs, flipped."""
+        n = 3 * 4096 + 5
+        rng = np.random.default_rng(11)
+        sid = np.sort(rng.integers(-1, 60, n)).astype(np.int32)[::-1].copy()
+        x = rng.integers(-1000, 1000, n).astype(np.int32)
+        ne = _neutral(op, np.int32)
+        got = segscan.flat_segscan_reference(
+            op, torch.from_numpy(sid), [torch.from_numpy(x)], ne,
+            reverse=True)[0]
+        exp = jax_flat_segscan(op, jnp.asarray(sid[::-1].copy()),
+                               [jnp.asarray(x[::-1].copy())], ne,
+                               interpret=True)[0]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp)[::-1])
 
     def test_multi_column(self, rng):
         n = 20000

@@ -622,6 +622,31 @@ def test_running_max_min_match_torch_cummax(n, op, reverse):
     assert torch.equal(plain, expect(x))
 
 
+# Lengths around kernel B's 4096-row tiles.
+_TILE_LENGTHS = [1, 4095, 4096, 4097, 3 * 4096 + 5]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("n", _TILE_LENGTHS)
+def test_running_max_min_match_lax(n, op, reverse):
+    """The helper equals the JAX package's running scans: lax.cummax /
+    lax.cummin, and jnp.flip(lax.cummin(jnp.flip(x))) for the reversed
+    form (ops/join.py, ops/groupby.py), on int32 edge values."""
+    from jax import lax
+
+    from harkdb_tpu_torch.prims.scan import running_max, running_min
+
+    x = _edge_ints(np.random.default_rng(n + 7), n)
+    helper = running_max if op == "max" else running_min
+    scan = lax.cummax if op == "max" else lax.cummin
+    xj = jnp.asarray(x.numpy())
+    exp = jnp.flip(scan(jnp.flip(xj))) if reverse else scan(xj)
+    got = helper(x, reverse=reverse)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
 def test_running_max_rejects_other_dtypes():
     from harkdb_tpu_torch.prims.scan import running_max
 
