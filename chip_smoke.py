@@ -40,13 +40,15 @@ Phases, each printing its results on lines of its own:
      numpy oracle with its kernel launches counted, then timed warm; the
      window query is profiled;
   8. time phases 4-6 end to end (warm-up, then the median of 5), break the
-     main query and the star join down by device kernel with
+     main query, the star join and Q3 down by device kernel with
      torch.profiler, time each kernel against its plain version, its
      bound (the bytes its work must move at 3.35 TB/s) and, where one
-     PyTorch call computes the same function, that call (kernel A:
-     ``x2[:, mask]``; kernel B over one segment: ``torch.cummax``) with
-     CUDA events, and time kernel C against the sort path's group-by at
-     spans 1024, 4096 and 16384 on 2^24 rows.
+     PyTorch call computes the same function or its core, that call
+     (kernel A: ``x2[:, mask]``; kernel B over one segment:
+     ``torch.cummax``; kernel D: ``torch.searchsorted`` for the seg ids
+     alone; kernel C: ``index_add_`` of one sum column over keys already
+     rebased, no mask) with CUDA events, and time kernel C against the
+     sort path's group-by at spans 1024, 4096 and 16384 on 2^24 rows.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -491,14 +493,25 @@ def check_expand(torch, expand, dev, offsets, n_src, out_cap, extras) -> int:
 
 
 def check_dense(torch, agg, dev, key, cols, n_valid, key_min, span,
-                mask=None) -> int:
-    """Kernel C against its plain version; returns the max abs error."""
-    k = torch.from_numpy(np.ascontiguousarray(key, np.int32)).to(dev)
-    vs = [torch.from_numpy(np.ascontiguousarray(c, np.int32)).to(dev)
-          for c in cols]
-    m = None if mask is None else torch.from_numpy(mask).to(dev)
+                mask=None, plan=None, skew=0) -> int:
+    """Kernel C against its plain version; returns the max abs error.
+    ``plan`` forces a histogram shape (matmul_agg.dense_agg_plan's tuple);
+    ``skew`` > 0 passes views that start ``skew`` words into their
+    buffers, so the kernel takes its scalar loads."""
+    def dev_t(a, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+        if skew:
+            t = torch.cat([torch.zeros(skew, dtype=t.dtype), t])
+        return t.to(dev)[skew:]
+
+    k = dev_t(key, np.int32)
+    vs = [dev_t(c, np.int32) for c in cols]
+    m = None if mask is None else dev_t(mask, np.bool_)
     nv = torch.full((), n_valid, dtype=torch.int32, device=dev)
-    got = agg.onehot_groupby_sums(k, vs, nv, key_min, span, mask=m)
+    if plan is None:
+        got = agg.onehot_groupby_sums(k, vs, nv, key_min, span, mask=m)
+    else:
+        got = agg._launch(k, vs, nv, key_min, span, m, plan)
     ref = agg.onehot_groupby_sums_reference(k, vs, nv, key_min, span, mask=m)
     torch.cuda.synchronize()
     err = 0
@@ -510,7 +523,8 @@ def check_dense(torch, agg, dev, key, cols, n_valid, key_min, span,
     if err:
         raise AssertionError(f"kernel C differs from its plain version "
                              f"(n={key.shape[0]}, span={span}, "
-                             f"{len(cols)} sum columns)")
+                             f"{len(cols)} sum columns, plan {plan}, "
+                             f"skew {skew})")
     return err
 
 
@@ -519,9 +533,25 @@ def _segments(sizes: np.ndarray):
     return offsets, (offsets + sizes).astype(np.int32)
 
 
+def _planes(rng, offsets, n_planes):
+    """``n_planes`` non-decreasing, non-negative planes over the segments."""
+    return [np.cumsum(rng.integers(0, 5, offsets.shape[0])).astype(np.int32)
+            for _ in range(n_planes)]
+
+
+# Histogram shapes every kernel C edge case runs under (matmul_agg's shape
+# names): (a) replicated in clusters of 1-8 CTAs, (b) the keys split over
+# 2-8 CTAs, (c) the columns split over a pair. The wrapper's own pick runs
+# too.
+C_PLANS = (("REPLICATED", 1), ("REPLICATED", 2), ("REPLICATED", 4),
+           ("REPLICATED", 8), ("SPLIT_KEYS", 2), ("SPLIT_KEYS", 4),
+           ("SPLIT_KEYS", 8), ("SPLIT_COLUMNS", 2))
+
+
 def phase_kernels_cd(torch, expand, agg, dev) -> None:
     """Kernels D and C on the CPU tests' cases (tests/test_torch_kernels.py,
-    after the JAX package's tests/test_kernels.py)."""
+    after the JAX package's tests/test_kernels.py), and at the edges of
+    their tiles, clusters and histogram shapes."""
     rng = np.random.default_rng(2)
     block = 16384                       # the TPU kernel's slot block
     out_cap = 3 * block + 1000
@@ -546,7 +576,42 @@ def phase_kernels_cd(torch, expand, agg, dev) -> None:
         check_expand(torch, expand, dev, offsets, n_seg,
                      int(sizes.sum()) + int(rng.integers(0, 300)), [mono])
         cases += 1
-    log(f"kernel D edge cases: {cases} passed (bit-exact on every slot)")
+    # The tile's edges (T slots a block).
+    t = expand.TILE
+    for cap in (t - 1, t, t + 1, 3 * t + 5):
+        sizes = rng.integers(1, 9, cap // 4 + 3).astype(np.int32)
+        offsets, ends = _segments(sizes)
+        check_expand(torch, expand, dev, offsets, len(sizes), cap,
+                     [ends, offsets])
+        cases += 1
+    layouts = {
+        "one segment over tiles": np.array([7, 3 * t + 100, 9], np.int32),
+        "unit segments, full windows": np.ones(2 * t, np.int32),
+        "empty runs": np.where(rng.random(3 * t) < 0.3, 0,
+                               rng.integers(1, 4, 3 * t)).astype(np.int32),
+        "empty run over a tile": np.concatenate(
+            [np.ones(t // 2), np.zeros(2 * t + 1), np.ones(t)]).astype(
+                np.int32),
+    }
+    for name, sizes in layouts.items():
+        offsets, ends = _segments(sizes)
+        for n_planes in (0, 2, 8):
+            check_expand(torch, expand, dev, offsets, len(sizes),
+                         int(sizes.sum()) + t // 3,
+                         [ends, *_planes(rng, offsets, n_planes - 1)]
+                         if n_planes else [])
+            cases += 1
+    sizes = rng.integers(1, 9, 3 * t).astype(np.int32)
+    offsets, ends = _segments(sizes)
+    late = offsets + 1000                         # offsets[0] > 0
+    check_expand(torch, expand, dev, late, len(sizes), 2 * t + 3, [ends])
+    check_expand(torch, expand, dev, offsets[:t], t, 5 * t,     # n_src = cap
+                 _planes(rng, offsets[:t], 8))
+    check_expand(torch, expand, dev, offsets, 0, 2 * t + 1,     # no source
+                 _planes(rng, offsets, 8))
+    cases += 3
+    log(f"kernel D edge cases: {cases} passed at tile {t} (bit-exact on "
+        f"every slot)")
 
     cases = 0
     n = 6000
@@ -563,9 +628,42 @@ def phase_kernels_cd(torch, expand, agg, dev) -> None:
                  rng.integers(0, 9, n)], n - 1, -30, 1024,
                 mask=rng.random(n) < 0.7)
     check_dense(torch, agg, dev, rng.integers(0, 50, n), [], n, 0, 64)
-    cases += 6
+    check_dense(torch, agg, dev, np.zeros(0), [np.zeros(0)], 0, -7, 100)
+    cases += 7
+    # Cluster and row edges: kernel C starts a CTA per 8192 rows, up to 8
+    # a cluster, and loads 4 rows a thread.
+    for n in (1, 5, 8191, 8192, 8193, 65535, 65536, 65537, 200_003):
+        key = rng.integers(-3000, 3000, n)
+        vals = [rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64)]
+        mask = rng.random(n) < 0.8
+        for nv in sorted({0, n - 1, n}):
+            check_dense(torch, agg, dev, key, vals, nv, -1000, 1024, mask)
+            cases += 1
+        check_dense(torch, agg, dev, key, vals, n, -1000, 1024, mask, skew=1)
+        check_dense(torch, agg, dev, key, vals, n, -1000, 1024,
+                    np.zeros(n, bool))                   # all rows masked
+        cases += 2
+    n = 300_001
+    hot = np.where(rng.random(n) < 0.9, 77, rng.integers(0, 4096, n))
+    wide = [rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64)
+            for _ in range(32)]
+    shapes = [(hot, wide[:1], 0, 4096, rng.random(n) < 0.9),   # 90% one key
+              (rng.integers(0, 16384, n), wide[:3], 0, 16384, None),
+              (rng.integers(-5, 16390, n), wide, 0, 16384, None),
+              (rng.integers(-2000, 2000, n), wide[:2], -1024, 1024, None)]
+    for key, vals, kmin, span, mask in shapes:
+        check_dense(torch, agg, dev, key, vals, n, kmin, span, mask)
+        cases += 1
+        for name, cluster in C_PLANS:
+            plan = agg.shape_plan(getattr(agg, name), cluster, span,
+                                  len(vals), agg.smem_optin())
+            if plan is None:
+                continue
+            check_dense(torch, agg, dev, key, vals, n, kmin, span, mask,
+                        plan=plan)
+            cases += 1
     log(f"kernel C edge cases: {cases} passed (bit-exact counts, sums and "
-        f"keys)")
+        f"keys, under every histogram shape)")
 
 
 def cd_shapes(torch, dev):
@@ -936,9 +1034,10 @@ def run_query_check(torch, H, counters, n, query, min_count):
     return ctx, launches
 
 
-def profile_query(torch, ctx, query) -> None:
+def profile_query(torch, ctx, query, top=20) -> float:
     """One warm run of ``query`` under torch.profiler: device time by
-    kernel, and the device's busy share of the wall time."""
+    kernel (the ``top`` longest), and the device's busy share of the wall
+    time. Returns the device-busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     ctx.sql(query)
@@ -960,9 +1059,10 @@ def profile_query(torch, ctx, query) -> None:
     log(f"profile: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%; one "
         f"stream, so kernel times do not overlap)")
-    top = sorted(by_name.items(), key=lambda x: -x[1][0])[:20]
-    for name, (tot, cnt) in top:
+    longest = sorted(by_name.items(), key=lambda x: -x[1][0])[:top]
+    for name, (tot, cnt) in longest:
         log(f"  {tot / 1e3:9.3f} ms  x{cnt:<4d} {name[:100]}")
+    return busy_us / 1e3
 
 
 def phase_nested(torch, H, counters):
@@ -1039,6 +1139,43 @@ def dense_agg_bytes(key, vals, mask, span) -> int:
     n = key.shape[0]
     return (4 * n * (1 + len(vals)) + (0 if mask is None else n)
             + 4 * span * (2 + len(vals)))
+
+
+def expand_bytes(offsets, n_src, out_cap, extras) -> int:
+    """Bytes kernel D's work must move: offsets and each extra plane over
+    the live segments in, seg, the offset fill and each plane's fill out."""
+    return (4 * int(n_src) * (1 + len(extras))
+            + 4 * out_cap * (2 + len(extras)))
+
+
+def library_searchsorted(torch, timer, offsets, n_src, out_cap) -> float:
+    """Time of ``torch.searchsorted`` of every slot into the live offsets:
+    kernel D's seg ids alone (a part of its function), inputs built
+    outside the timed region."""
+    live = offsets[:int(n_src)].contiguous()
+    slots = torch.arange(out_cap, dtype=torch.int32, device=offsets.device)
+    return timer(torch, lambda: torch.searchsorted(live, slots, right=True))
+
+
+def library_index_add(torch, timer, key, vals, key_min, span, say) -> float:
+    """Time of one ``index_add_`` of one value column over the keys
+    already rebased and inside the span (no mask, no n_valid): kernel C's
+    sums of one column alone, inputs built outside the timed region. int32
+    where the card's build takes it, else int64."""
+    k = key.to(torch.int64) - key_min
+    keep = (k >= 0) & (k < span)
+    idx, src = k[keep], vals[keep]
+    for dtype in (torch.int32, torch.int64):
+        acc = torch.zeros(span, dtype=dtype, device=key.device)
+        s = src.to(dtype)
+        try:
+            acc.index_add_(0, idx, s)
+        except RuntimeError as e:       # this build's index_add_ refuses it
+            say(f"index_add_ in {dtype}: {e}")
+            continue
+        return timer(torch, lambda: torch.zeros(
+            span, dtype=dtype, device=key.device).index_add_(0, idx, s))
+    raise RuntimeError("index_add_ ran in neither int32 nor int64")
 
 
 def kernel_entry(name, source, replaces, launches, main_launches, err, ms,
@@ -1171,6 +1308,7 @@ def main() -> int:
         f"{N_CUSTOMER:,} customer)")
     del tpch
     q3_ms, q3_all = time_query(torch, q3, Q3_QUERY)
+    profile_query(torch, q3, Q3_QUERY)
     del q3
     torch.cuda.empty_cache()
     log(f"star join: median {star_ms:.3f} ms of {star_all}")
@@ -1209,35 +1347,46 @@ def main() -> int:
     d_ms, d_host = time_cuda(torch, lambda: expand.expand_fills(*d_star),
                              host=True)
     d_plain = time_cuda(torch, lambda: expand.expand_fills_reference(*d_star))
-    dq_ms = time_cuda(torch, lambda: expand.expand_fills(*d_q3))
+    dq_ms, dq_host = time_cuda(torch, lambda: expand.expand_fills(*d_q3),
+                               host=True)
     dq_plain = time_cuda(torch,
                          lambda: expand.expand_fills_reference(*d_q3))
+    d_lib, dq_lib = (library_searchsorted(torch, time_cuda, *args[:3])
+                     for args in (d_star, d_q3))
     log(f"kernel D star join {d_ms:.4f} ms (host {d_host:.4f}) vs plain "
-        f"{d_plain:.4f} ms; Q3 shape {dq_ms:.4f} ms vs plain {dq_plain:.4f} "
-        f"ms")
+        f"{d_plain:.4f} ms vs torch.searchsorted (seg ids alone) "
+        f"{d_lib:.4f} ms; Q3 shape {dq_ms:.4f} ms (host {dq_host:.4f}) vs "
+        f"plain {dq_plain:.4f} ms vs torch.searchsorted {dq_lib:.4f} ms")
     ckey, cvals, cnv, ckmin, cspan, cmask = c_main
     c_ms, c_host = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
         ckey, cvals, cnv, ckmin, cspan, mask=cmask), host=True)
     c_plain = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums_reference(
         ckey, cvals, cnv, ckmin, cspan, mask=cmask))
     one_k, one_v, one_nv = c_one
-    c1_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
-        one_k, one_v, one_nv, 5, 1))
+    c1_ms, c1_host = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        one_k, one_v, one_nv, 5, 1), host=True)
     c1_plain = time_cuda(
         torch, lambda: matmul_agg.onehot_groupby_sums_reference(
             one_k, one_v, one_nv, 5, 1))
     w_k, w_v, w_nv = c_wide
-    cw_ms = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
-        w_k, w_v, w_nv, 0, 16384))
+    cw_ms, cw_host = time_cuda(torch, lambda: matmul_agg.onehot_groupby_sums(
+        w_k, w_v, w_nv, 0, 16384), host=True)
     cw_plain = time_cuda(
         torch, lambda: matmul_agg.onehot_groupby_sums_reference(
             w_k, w_v, w_nv, 0, 16384))
+    c_lib, c1_lib, cw_lib = (
+        library_index_add(torch, time_cuda, k_, v_[0], kmin_, span_, log)
+        for k_, v_, kmin_, span_ in ((ckey, cvals, ckmin, cspan),
+                                     (one_k, one_v, 5, 1),
+                                     (w_k, w_v, 0, 16384)))
     cw_bound = dense_agg_bytes(w_k, w_v, None, 16384) / HBM_BYTES_PER_MS
     log(f"kernel C at {ckey.shape[0]:,} rows: span 4096 + mask {c_ms:.4f} "
-        f"ms (host {c_host:.4f}) vs plain {c_plain:.4f} ms; span 1 "
-        f"{c1_ms:.4f} ms vs plain {c1_plain:.4f} ms; span 16384 x 3 sum "
-        f"columns {cw_ms:.4f} ms vs plain {cw_plain:.4f} ms (bound "
-        f"{cw_bound:.4f} ms, {cw_bound / cw_ms:.3f} of it)")
+        f"ms (host {c_host:.4f}) vs plain {c_plain:.4f} ms vs index_add_ "
+        f"(one sum, no mask) {c_lib:.4f} ms; span 1 {c1_ms:.4f} ms vs plain "
+        f"{c1_plain:.4f} ms vs index_add_ {c1_lib:.4f} ms; span 16384 x 3 "
+        f"sum columns {cw_ms:.4f} ms vs plain {cw_plain:.4f} ms vs "
+        f"index_add_ {cw_lib:.4f} ms (bound {cw_bound:.4f} ms, "
+        f"{cw_bound / cw_ms:.3f} of it)")
     # Kernel C against the sort path's group-by (sum + count) on 2^24 rows:
     # the measurement a later PR needs to re-derive MAX_KEY_SPAN.
     n24 = torch.full((), N_MAIN, dtype=torch.int32, device=dev)
@@ -1267,13 +1416,22 @@ def main() -> int:
         "onehot_groupby_sums": kernel_only_ms(
             torch, lambda: matmul_agg.onehot_groupby_sums(
                 ckey, cvals, cnv, ckmin, cspan, mask=cmask),
-            "dense_agg_kernel"),
+            "dense_agg"),
+        "onehot_groupby_sums_span1": kernel_only_ms(
+            torch, lambda: matmul_agg.onehot_groupby_sums(
+                one_k, one_v, one_nv, 5, 1), "dense_agg"),
+        "onehot_groupby_sums_span16384x3": kernel_only_ms(
+            torch, lambda: matmul_agg.onehot_groupby_sums(
+                w_k, w_v, w_nv, 0, 16384), "dense_agg"),
         "expand_fills": kernel_only_ms(
             torch, lambda: expand.expand_fills(*d_star), "expand_kernel"),
+        "expand_fills_q3": kernel_only_ms(
+            torch, lambda: expand.expand_fills(*d_q3), "expand_kernel"),
     }
     log(f"kernels alone (torch.profiler, ms): {kernel_ms}")
     n_b = sid.shape[0]
-    _offs, d_nsrc, d_cap, d_extras = d_star
+    # Kernel C at span 1 and at span 16384 x 3 is a shape that no query of
+    # this script runs: its rows carry 0 launches.
     report = {"kernels": [
         kernel_entry("flat_compact", "compact.cu",
                      "harkdb_tpu/kernels/compact.py:199",
@@ -1294,13 +1452,25 @@ def main() -> int:
                      star_launches["onehot_groupby_sums"],
                      launches["onehot_groupby_sums"], c_err, c_ms, c_host,
                      c_plain, dense_agg_bytes(ckey, cvals, cmask, cspan),
-                     None),
+                     c_lib),
+        kernel_entry("onehot_groupby_sums_span1", "dense_agg.cu",
+                     "harkdb_tpu/kernels/matmul_agg.py:134", 0, 0, c_err,
+                     c1_ms, c1_host, c1_plain,
+                     dense_agg_bytes(one_k, one_v, None, 1), c1_lib),
+        kernel_entry("onehot_groupby_sums_span16384x3", "dense_agg.cu",
+                     "harkdb_tpu/kernels/matmul_agg.py:134", 0, 0, c_err,
+                     cw_ms, cw_host, cw_plain,
+                     dense_agg_bytes(w_k, w_v, None, 16384), cw_lib),
         kernel_entry("expand_fills", "expand.cu",
                      "harkdb_tpu/kernels/expand.py:177",
                      star_launches["expand_fills"], launches["expand_fills"],
-                     d_err, d_ms, d_host, d_plain,
-                     4 * int(d_nsrc) * (1 + len(d_extras))
-                     + 4 * d_cap * (2 + len(d_extras)), None),
+                     d_err, d_ms, d_host, d_plain, expand_bytes(*d_star),
+                     d_lib),
+        kernel_entry("expand_fills_q3", "expand.cu",
+                     "harkdb_tpu/kernels/expand.py:177",
+                     q3_launches["expand_fills"], launches["expand_fills"],
+                     d_err, dq_ms, dq_host, dq_plain, expand_bytes(*d_q3),
+                     dq_lib),
     ], "query_ms": {"rows_16777216": main_ms, "rows_100000000": big_ms,
                     "star_join": star_ms, "tpch_q3_sf1": q3_ms, **nested_ms},
         "launches": {"rows_16777216": launches,

@@ -48,13 +48,13 @@ _SIGNATURES = {
     ),
     "harkdb_expand_fills": (
         ctypes.c_int,
-        [_P, _P, _I64, _I64, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P],
+        [_P, _P, _I64, _I64, ctypes.c_int, _P, _P, _P, _P, _P],
     ),
-    "harkdb_dense_agg_max_group": (ctypes.c_int, [ctypes.c_int]),
+    "harkdb_smem_optin": (ctypes.c_int, []),
     "harkdb_dense_agg": (
         ctypes.c_int,
         [_P, _P, _P, _I64, _I32, ctypes.c_int, ctypes.c_int, _P,
-         ctypes.c_int, _P, _P],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     ),
 }
 
@@ -168,10 +168,3 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def sm_count(device) -> int:
-    """Streaming multiprocessors of the card (sizes grid-stride launches)."""
-    import torch
-
-    return torch.cuda.get_device_properties(device).multi_processor_count

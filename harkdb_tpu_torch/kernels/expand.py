@@ -13,7 +13,14 @@ output slot ``p < out_capacity``::
 Slots past the last segment's end keep the last segment's values; callers
 mask with their own live predicate. The TPU kernel's max-fill needs every
 extra plane to be non-negative and non-decreasing; the contract keeps that
-precondition, though the binary search here does not rely on it.
+precondition, though the kernel here does not rely on it (its max-scan runs
+over segment indices, and the fills are gathers). Equal offsets (empty
+segments, outside the contract) give the last of the equal entries in both
+versions.
+
+The kernel gives each block a tile of ``TILE`` output slots: one search for
+the tile's source window, a marker scatter and a max-scan in shared memory,
+then stores of 128 contiguous bytes a warp (``csrc/expand.cu``).
 
 ``expand_fills`` launches the CUDA kernel for CUDA tensors and raises on
 anything it does not take. ``expand_fills_reference`` is the plain PyTorch
@@ -34,6 +41,9 @@ from harkdb_tpu_torch.kernels import _lib
 LAUNCHES = 0
 
 MAX_EXTRAS = 8          # extra planes one launch carries (csrc/expand.cu)
+#: Output slots a block owns: a mirror of ``kTile`` in csrc/expand.cu (2048
+#: measured faster than 4096 on an H100, PERF.md), read by the edge cases.
+TILE = 2048
 _I32_MAX = 2147483647
 
 
@@ -93,7 +103,7 @@ def expand_fills(offsets: torch.Tensor, n_src: torch.Tensor,
     _lib.check(lib.harkdb_expand_fills(
         offsets.data_ptr(), n_src.data_ptr(), offsets.shape[0], out_capacity,
         len(ins), in_ptrs, out_ptrs, seg.data_ptr(), off.data_ptr(),
-        _lib.sm_count(dev), _lib.stream_handle(dev),
+        _lib.stream_handle(dev),
     ), "expand kernel")
     LAUNCHES += 1
     return seg, off, outs

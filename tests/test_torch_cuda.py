@@ -1,8 +1,10 @@
 """harkdb_tpu_torch's CUDA kernels on the card (marker ``gpu``).
 
 Repeats chip_smoke.py's phase 3 — each kernel held against its plain
-PyTorch version on edge cases, where a decoupled look-back can go wrong
-and at the main paths' shapes — holds the
+PyTorch version on edge cases (for kernels D and C also at the edges of
+their tiles and clusters, on runs of empty segments and under every
+histogram shape), where a decoupled look-back can go wrong and at the main
+paths' shapes — holds the
 running max / min (kernel B over one segment) against ``torch.cummax`` /
 ``torch.cummin``, and checks the main query, the joins, the dense-key
 GROUP BY and the nested queries (windows, set operations, a CTE, EXISTS,

@@ -367,6 +367,87 @@ class TestExpandReference:
             self._check(offsets, n_seg, 80_000 + 300, [mono],
                         min(total, live_cap))
 
+    # The CUDA kernel's tile edges (expand.TILE output slots a block).
+    TILE = expand.TILE
+
+    @pytest.mark.parametrize("cap", ["T-1", "T", "T+1", "3T+5"])
+    def test_tile_edges_vs_pallas(self, rng, cap):
+        t = self.TILE
+        out_cap = {"T-1": t - 1, "T": t, "T+1": t + 1, "3T+5": 3 * t + 5}[cap]
+        sizes = rng.integers(1, 9, out_cap // 4 + 3).astype(np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        self._check(offsets, len(sizes), out_cap, [offsets + sizes, offsets],
+                    min(out_cap, int(sizes.sum())))
+
+    @pytest.mark.parametrize("layout", ["one_segment_over_tiles",
+                                        "unit_segments_fill_tiles",
+                                        "late_first_offset", "n_src_is_cap"])
+    def test_tile_layouts_vs_pallas(self, rng, layout):
+        t = self.TILE
+        out_cap = 3 * t + 5
+        if layout == "one_segment_over_tiles":
+            sizes = np.array([7, 3 * t - 20, 9], np.int32)
+        elif layout == "unit_segments_fill_tiles":
+            sizes = np.ones(2 * t, np.int32)
+        else:
+            sizes = rng.integers(1, 9, t).astype(np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        total = int(sizes.sum())
+        if layout == "late_first_offset":       # offsets[0] > 0
+            offsets = offsets + 1000
+            total += 1000
+        ends = offsets + sizes
+        if layout == "n_src_is_cap":             # no padding past n_src
+            seg, off_f, fills = expand.expand_fills_reference(
+                _t(offsets), _nv(len(sizes)), out_cap, [_t(ends)])
+            want = self._oracle(offsets, len(sizes), out_cap)
+            np.testing.assert_array_equal(seg.numpy(), want)
+            np.testing.assert_array_equal(off_f.numpy(), offsets[want])
+            np.testing.assert_array_equal(fills[0].numpy(), ends[want])
+        self._check(offsets, len(sizes), out_cap, [ends],
+                    min(out_cap, total))
+
+    @pytest.mark.parametrize("n_planes", [0, 2, 8])
+    def test_extra_planes_vs_pallas(self, rng, n_planes):
+        t = self.TILE
+        sizes = rng.integers(1, 6, 2 * t).astype(np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        planes = [np.cumsum(rng.integers(0, 5, len(sizes))).astype(np.int32)
+                  for _ in range(n_planes)]
+        self._check(offsets, len(sizes), 3 * t + 5, planes,
+                    min(3 * t + 5, int(sizes.sum())))
+
+    @pytest.mark.parametrize("layout", ["empty_runs", "empty_run_over_a_tile"])
+    def test_empty_segments_vs_searchsorted(self, rng, layout):
+        """Equal offsets are outside the Pallas kernel's contract; the
+        plain version (and the CUDA kernel, on the card) give the last of
+        the equal entries, as np.searchsorted(side="right") does."""
+        t = self.TILE
+        if layout == "empty_runs":
+            sizes = np.where(rng.random(3 * t) < 0.3, 0,
+                             rng.integers(1, 4, 3 * t)).astype(np.int32)
+        else:
+            sizes = np.concatenate([np.ones(t // 2), np.zeros(2 * t + 1),
+                                    np.ones(t)]).astype(np.int32)
+        offsets = (np.cumsum(sizes) - sizes).astype(np.int32)
+        ends = (offsets + sizes).astype(np.int32)
+        out_cap = int(sizes.sum()) + t // 3
+        seg, off_f, fills = expand.expand_fills_reference(
+            _t(offsets), _nv(len(sizes)), out_cap, [_t(ends)])
+        want = self._oracle(offsets, len(sizes), out_cap)
+        np.testing.assert_array_equal(seg.numpy(), want)
+        np.testing.assert_array_equal(off_f.numpy(), offsets[want])
+        np.testing.assert_array_equal(fills[0].numpy(), ends[want])
+
+    def test_no_source_fills_every_plane(self, rng):
+        offsets = np.arange(0, 40, 4, dtype=np.int32)
+        planes = [rng.integers(0, 99, 10).astype(np.int32) for _ in range(8)]
+        seg, off_f, fills = expand.expand_fills_reference(
+            _t(offsets), _nv(0), 2 * self.TILE + 1, [_t(p) for p in planes])
+        assert not seg.any() and (off_f == 2**31 - 1).all()
+        for f, p in zip(fills, planes):
+            assert (f == int(p[0])).all()
+
     def test_no_source_and_expand_ids(self):
         offsets = np.array([0, 3, 9], np.int32)
         seg, off_f, fills = expand.expand_fills_reference(
@@ -460,6 +541,108 @@ class TestOnehotReference:
             np.int32)
         b = rng.integers(0, 9, n).astype(np.int32)
         self._check(k, [a, b], n - 7, -30, 1024, rng.random(n) < 0.7)
+
+    @pytest.mark.parametrize("case", ["n_valid_0", "all_rows_masked",
+                                      "keys_outside_negative_min",
+                                      "hot_key_90pct"])
+    def test_edge_cases_vs_pallas(self, rng, case):
+        n = 5000
+        k = rng.integers(0, 64, n).astype(np.int32)
+        v = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+        mask, nv, kmin, span = rng.random(n) < 0.8, n, 0, 64
+        if case == "n_valid_0":
+            nv = 0
+        elif case == "all_rows_masked":
+            mask = np.zeros(n, bool)
+        elif case == "keys_outside_negative_min":
+            k = rng.integers(-3000, 3000, n).astype(np.int32)
+            kmin, span = -1000, 1024
+        else:
+            k = np.where(rng.random(n) < 0.9, 17, k).astype(np.int32)
+        counts, _sums, _axis = self._check(k, [v], nv, kmin, span, mask)
+        if case in ("n_valid_0", "all_rows_masked"):
+            assert not counts.any()
+
+    @pytest.mark.parametrize("n_cols", [3, 32])
+    def test_wide_span_many_columns_vs_pallas(self, rng, n_cols):
+        n = 600
+        k = rng.integers(-5, 16390, n).astype(np.int32)
+        cols = [rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(
+            np.int32) for _ in range(n_cols)]
+        self._check(k, cols, n, 0, 16384)
+
+    # Row counts at the CUDA kernel's edges: 4 rows a thread, a CTA per 8192
+    # rows, clusters of up to 8 CTAs.
+    @pytest.mark.parametrize("n", [1, 5, 8191, 8192, 8193, 65537])
+    def test_row_count_edges_vs_pallas(self, rng, n):
+        k = rng.integers(-10, 80, n).astype(np.int32)
+        v = rng.integers(-99, 99, n).astype(np.int32)
+        self._check(k, [v], max(0, n - 3), 0, 64, rng.random(n) < 0.7)
+
+    SMEM_OPTIN = 232448                 # an H100's opt-in shared memory
+
+    @pytest.mark.parametrize("span,n_cols,plan", [
+        (4096, 1, (0, 8, 0, 2)),            # the star join: replicated
+        (1, 1, (0, 8, 0, 2)),
+        (16384, 1, (0, 8, 0, 2)),           # 128 KB fits one CTA
+        (16384, 3, (2, 2, 0, 2)),           # 256 KB: two columns a CTA
+        (1024, 32, (0, 8, 0, 33)),          # 132 KB: one CTA
+        (8192, 7, (1, 2, 12, 8)),           # 256 KB, too many columns
+        (16384, 32, (1, 8, 11, 19)),        # 19 of 33 columns in shared
+    ])
+    def test_plan_by_shape(self, span, n_cols, plan):
+        assert matmul_agg.dense_agg_plan(span, n_cols,
+                                         self.SMEM_OPTIN) == plan
+
+    def test_plans_fit_and_cover(self):
+        agg = matmul_agg
+        budget = self.SMEM_OPTIN - agg.STAGE_BYTES
+        for span in (1, 2, 3, 50, 191, 1000, 1024, 4095, 4096, 8193, 16384):
+            for n_cols in (0, 1, 2, 3, 8, 31, 32):
+                shape, cluster, shift, held = agg.dense_agg_plan(
+                    span, n_cols, self.SMEM_OPTIN)
+                assert cluster in (1, 2, 4, 8) and 0 <= held <= n_cols + 1
+                if shape == agg.SPLIT_KEYS:
+                    assert cluster << shift >= span
+                    assert 4 * held << shift <= budget
+                    assert held == n_cols + 1 or cluster == 8
+                elif shape == agg.SPLIT_COLUMNS:
+                    assert (cluster, held) == (2, 2)
+                    assert n_cols + 1 <= agg.COLUMN_PAIR_COLS
+                    assert 8 * span <= budget
+                else:
+                    assert shape == agg.REPLICATED and held == n_cols + 1
+                    assert 4 * held * span <= budget
+
+    @pytest.mark.parametrize("shape,cluster", [
+        (0, 1), (0, 8), (1, 2), (1, 4), (1, 8), (2, 2)])
+    def test_forced_plans_fit(self, shape, cluster):
+        """A plan forced by shape and cluster size (the card's edge cases
+        run every histogram shape) fits, or is None where it cannot."""
+        agg = matmul_agg
+        budget = self.SMEM_OPTIN - agg.STAGE_BYTES
+        for span in (1, 50, 1024, 4096, 8193, 16384):
+            for n_cols in (0, 1, 3, 8, 32):
+                plan = agg.shape_plan(shape, cluster, span, n_cols,
+                                      self.SMEM_OPTIN)
+                if plan is None:
+                    assert shape != agg.SPLIT_KEYS
+                    continue
+                got_shape, got_cluster, shift, held = plan
+                assert (got_shape, got_cluster) == (shape, cluster)
+                if shape == agg.SPLIT_KEYS:
+                    assert cluster << shift >= span
+                    assert 0 < 4 * held << shift <= budget
+                elif shape == agg.SPLIT_COLUMNS:
+                    assert n_cols + 1 <= agg.COLUMN_PAIR_COLS
+                    assert 8 * span <= budget
+                else:
+                    assert 4 * (n_cols + 1) * span <= budget
+                if plan[:2] == agg.dense_agg_plan(span, n_cols,
+                                                  self.SMEM_OPTIN)[:2]:
+                    assert plan == agg.dense_agg_plan(span, n_cols,
+                                                      self.SMEM_OPTIN)
 
     def test_applicability(self):
         assert matmul_agg.matmul_agg_applicable(["sum", "count"], 1000)
