@@ -33,9 +33,10 @@ Phases, each printing its results on lines of its own:
      span 4096) and TPC-H Q3's shape at scale factor 1 row counts (a 3-way
      join, then a sort-path GROUP BY and a top 10), each against a numpy
      oracle with its kernel launches counted;
-  7. nested queries: TPC-H Q4 (EXISTS), Q5 (a CTE), Q13 (a derived table
-     over a LEFT JOIN) and Q17 (a correlated scalar subquery) at SF 1 row
-     counts, a window query (row_number, rank and a running sum over about
+  7. nested queries: TPC-H Q1 (a sort-path GROUP BY over ten keys with
+     AVG and a sum of a product), Q4 (EXISTS), Q5 (a CTE), Q13 (a derived
+     table over a LEFT JOIN) and Q17 (a correlated scalar subquery) at SF 1
+     row counts, a window query (row_number, rank and a running sum over about
      1M partitions) and an INTERSECT on the 2^24-row table, each against a
      numpy oracle with its kernel launches counted, then timed warm; the
      window query is profiled;
@@ -48,7 +49,15 @@ Phases, each printing its results on lines of its own:
      ``torch.cummax``; kernel D: ``torch.searchsorted`` for the seg ids
      alone; kernel C: ``index_add_`` of one sum column over keys already
      rebased, no mask) with CUDA events, and time kernel C against the
-     sort path's group-by at spans 1024, 4096 and 16384 on 2^24 rows.
+     sort path's group-by at spans 1024, 4096 and 16384 on 2^24 rows;
+     phases 4 and 6 also run the main query, the star join and Q3 under
+     ``EngineConfig(debug_checks=True)``: the same rows, timed beside the
+     default config;
+  9. write phase 4's table as a CSV into ``harkdb_tpu_torch/build/``, load
+     it onto the card with ``create_table`` (the native loader; host time
+     and rows/s logged), check the main query on it against the oracle and
+     the dict-loaded table, then run the CLI in-process with ``--profile``
+     (its trace must name kernels A and B) and ``--explain``.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -84,7 +93,13 @@ Q3_QUERY = (
     "group by orders.orderkey order by rev desc, orders.orderkey "
     "limit 10"
 )
-# TPC-H Q4, Q5, Q13 and Q17's shapes, verbatim from tests/test_tpch_mini.py.
+# TPC-H Q1, Q4, Q5, Q13 and Q17's shapes, verbatim from
+# tests/test_tpch_mini.py.
+Q1_QUERY = (
+    "select discount, sum(qty) as sq, sum(price * qty) as sp, "
+    "avg(price) as ap, count(*) as n from lineitem "
+    "where ship <= 300 group by discount order by discount"
+)
 Q4_QUERY = (
     "select prio, count(*) as n from orders "
     "where exists (select 1 from lineitem "
@@ -820,6 +835,25 @@ def wrap32(x) -> np.ndarray:
     return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
 
 
+def q1_oracle(t) -> np.ndarray:
+    """Q1: per discount over the lines shipped by day 300, sum(qty) and
+    sum(price * qty) wrapped to int32 as the engine's int32 sums wrap,
+    avg(price) as float32(the wrapped int32 sum) / float32(count), and
+    count; by discount. float64, as ``sql`` stacks int32 with float32."""
+    li = t["lineitem"]
+    keep = li["ship"] <= 300
+    d = li["discount"][keep]
+    qty = li["qty"][keep].astype(np.int64)
+    price = li["price"][keep].astype(np.int64)
+    n = np.bincount(d)
+    keys = np.flatnonzero(n)
+    sq = wrap32(np.bincount(d, weights=qty))[keys]
+    sp = wrap32(np.bincount(d, weights=price * qty))[keys]
+    sprice = wrap32(np.bincount(d, weights=price))[keys]
+    ap = sprice.astype(np.float32) / n[keys].astype(np.float32)
+    return np.stack([keys, sq, sp, ap, n[keys]], axis=1).astype(np.float64)
+
+
 def q4_oracle(t) -> np.ndarray:
     """Q4: orders with a line of qty > 40, counted by prio."""
     o, li = t["orders"], t["lineitem"]
@@ -1066,12 +1100,13 @@ def profile_query(torch, ctx, query, top=20) -> float:
 
 
 def phase_nested(torch, H, counters):
-    """Phase 7: TPC-H Q4, Q5, Q13 and Q17 at SF 1 row counts, the window
+    """Phase 7: TPC-H Q1, Q4, Q5, Q13 and Q17 at SF 1 row counts, the window
     query and the INTERSECT query on the 2^24-row table, each against its
     numpy oracle with its launches counted, then timed warm; the window
     query profiled. Returns ``(query_ms, launches)``."""
     tpch = q3_data()
     cases = [
+        ("tpch_q1_sf1", Q1_QUERY, q1_oracle(tpch), {"flat_compact": 2}),
         ("tpch_q4_sf1", Q4_QUERY, q4_oracle(tpch),
          {"flat_compact": 1, "onehot_groupby_sums": 1}),
         ("tpch_q5_sf1", Q5_QUERY, q5_oracle(tpch),
@@ -1090,8 +1125,12 @@ def phase_nested(torch, H, counters):
     for name, query, _expect, _need in cases:
         query_ms[name], times = time_query(torch, ctx, query)
         log(f"{name}: median {query_ms[name]:.3f} ms of {times}")
+    log("tpch_q1_sf1:")
+    profile_query(torch, ctx, Q1_QUERY)
     del ctx, cases
     torch.cuda.empty_cache()
+    for form, ms in cumsum_forms(torch).items():
+        query_ms[f"q1_cumsum_{form}"] = ms
 
     k_np, v_np = table_data(N_MAIN)
     cases = [
@@ -1120,6 +1159,179 @@ def phase_nested(torch, H, counters):
     del ctx, cases
     torch.cuda.empty_cache()
     return query_ms, launches
+
+
+def cumsum_forms(torch, n=6_001_664, cols=3) -> dict:
+    """Q1's three telescoped int32 sums at its group-by capacity
+    (lineitem's rows padded to 1024, not shrunk: the power-of-two bucket of
+    its live rows is larger): one
+    ``torch.cumsum`` along dim 0 of an [n, 3] stack against three 1-D
+    cumsums, CUDA events; both must agree."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-1000, 1000, (n, cols), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    split = [x[:, j].contiguous() for j in range(cols)]
+    got = torch.stack([torch.cumsum(c, 0, dtype=torch.int32) for c in split],
+                      dim=1)
+    if not torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32)):
+        raise AssertionError("the two cumsum forms differ")
+    out = {
+        "stacked_ms": time_cuda(torch, lambda: torch.cumsum(
+            x, 0, dtype=torch.int32), iters=3, warmup=1),
+        "per_column_ms": time_cuda(torch, lambda: [torch.cumsum(
+            c, 0, dtype=torch.int32) for c in split], iters=3, warmup=1),
+    }
+    log(f"cumsum of {n:,} x {cols} int32 along dim 0: stacked "
+        f"{out['stacked_ms']:.3f} ms, one 1-D cumsum per column "
+        f"{out['per_column_ms']:.3f} ms (the group-by's form)")
+    return out
+
+
+def debug_checks_overhead(torch, H, ctx, query, name, base_ms) -> dict:
+    """``query`` under ``EngineConfig(debug_checks=True)`` over ``ctx``'s
+    tables: the same result as ``ctx`` gives, and its time beside the
+    default config's (``base_ms``, then again after the checked runs)."""
+    checked = H.Context(H.EngineConfig(debug_checks=True), device="cuda")
+    checked.tables.update(ctx.tables)
+    if not np.array_equal(checked.sql(query), ctx.sql(query)):
+        raise AssertionError(f"{name} differs under debug_checks")
+    on_ms, on_all = time_query(torch, checked, query)
+    off_ms, off_all = time_query(torch, ctx, query)
+    log(f"{name} under debug_checks: equal; median {on_ms:.3f} ms of "
+        f"{on_all} vs {base_ms:.3f} ms, then {off_ms:.3f} ms of {off_all} "
+        f"without")
+    return {"on_ms": on_ms, "off_ms": [base_ms, off_ms]}
+
+
+def write_csv(path: str, cols) -> None:
+    """Write int32 columns as a CSV (header, then ``%d,%d`` rows) with
+    numpy alone: each value's decimal digits are laid into a fixed-width
+    byte matrix, and the filler bytes are then dropped."""
+    names = list(cols)
+    n = len(cols[names[0]])
+    widths = [max(len(str(int(a.min()))), len(str(int(a.max()))))
+              for a in cols.values()]
+    fill = ord(" ")
+    buf = np.full((n, sum(widths) + len(widths)), fill, np.uint8)
+    pos = 0
+    for i, (a, w) in enumerate(zip(cols.values(), widths)):
+        m = np.abs(a.astype(np.int64))
+        neg = a < 0
+        for d in range(w):
+            at = pos + w - 1 - d
+            live = (m > 0) if d else np.ones(n, bool)
+            buf[live, at] = ord("0") + (m[live] % 10).astype(np.uint8)
+            m //= 10
+            sign = neg & live & (m == 0)
+            buf[sign, at - 1] = ord("-")
+        buf[:, pos + w] = ord("\n") if i == len(names) - 1 else ord(",")
+        pos += w + 1
+    flat = buf.ravel()
+    with open(path, "wb") as f:
+        f.write((",".join(names) + "\n").encode())
+        f.write(flat[flat != fill].tobytes())
+
+
+def phase_csv_cli(torch, H, counters, build_dir):
+    """Phase 9: bench-2^24's table written as a CSV, loaded onto the card
+    by ``create_table`` (the native loader, which reads an all-numeric CSV
+    whether pandas is installed or not; its parse alone timed too) and
+    queried against the numpy oracle and the dict-loaded table; then
+    the CLI in-process with ``--profile`` (a trace naming kernels A and B)
+    and ``--explain``. Returns the numbers for the report."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from harkdb_tpu_torch.__main__ import main as cli_main
+    from harkdb_tpu_torch.io import native_csv
+
+    out = {"pandas_present": importlib.util.find_spec("pandas") is not None}
+    t0 = time.perf_counter()
+    native_csv.build()
+    out["loader_build_s"] = time.perf_counter() - t0
+    k_np, v_np = table_data(N_MAIN)
+    path = os.path.join(build_dir, f"bench_{N_MAIN}.csv")
+    t0 = time.perf_counter()
+    write_csv(path, {"k": k_np, "v": v_np})
+    out["write_s"] = time.perf_counter() - t0
+    out["csv_bytes"] = os.path.getsize(path)
+    log(f"CSV of bench-2^24 ({N_MAIN:,} rows, {out['csv_bytes']:,} bytes) "
+        f"written in {out['write_s']:.2f} s; native loader built in "
+        f"{out['loader_build_s']:.2f} s; pandas present: "
+        f"{out['pandas_present']}")
+    ctx = H.Context(device="cuda")
+    t0 = time.perf_counter()
+    ctx.create_table("t", path)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_rows_per_s"] = N_MAIN / out["load_s"]
+    log(f"create_table from the CSV onto the card (host time, native "
+        f"loader, parse + dtype policy + copy to the card): "
+        f"{out['load_s']:.3f} s, {out['load_rows_per_s'] / 1e6:.2f} M rows/s, "
+        f"{out['csv_bytes'] / out['load_s'] / 1e6:.1f} MB/s")
+    t0 = time.perf_counter()
+    parsed = native_csv.native_read_csv(path, H.EngineConfig())
+    out["native_parse_s"] = time.perf_counter() - t0
+    if parsed is None or parsed[1] != ["k", "v"]:
+        raise AssertionError("the native loader did not read the CSV")
+    del parsed
+    log(f"native_read_csv alone (host time, threads over newline-split "
+        f"chunks, then the int / float decision per column): "
+        f"{out['native_parse_s']:.3f} s")
+    out["launches"] = check_query(
+        ctx, counters, MAIN_QUERY, oracle(k_np, v_np),
+        {"flat_compact": 2, "flat_segscan": 1}, "main query on the CSV table")
+    from_dict, _load = load_context(torch, H, {"t": {"k": k_np, "v": v_np}})
+    if not np.array_equal(ctx.sql(MAIN_QUERY), from_dict.sql(MAIN_QUERY)):
+        raise AssertionError("the CSV table and the dict table differ")
+    log("main query on the CSV table: equal to the dict-loaded table's")
+    del ctx, from_dict
+
+    trace_dir = os.path.join(build_dir, "cli_trace")
+    if os.path.isdir(trace_dir):
+        for f in os.listdir(trace_dir):
+            os.remove(os.path.join(trace_dir, f))
+    argv = ["--table", f"t={path}", "--profile", trace_dir, MAIN_QUERY]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        rc = cli_main(argv)
+    out["cli_profile_s"] = time.perf_counter() - t0
+    out["cli_launches"] = read_launches(counters)
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}: {stderr.getvalue()}")
+    traces = sorted(os.listdir(trace_dir))
+    if len(traces) != 1:
+        raise AssertionError(f"expected one trace file, found {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        text = f.read()
+    names = sorted(set(re.findall(r"([a-z_]+_kernel)", text)))
+    missing = {n for n in ("compact_kernel", "segscan_kernel")
+               if n not in text}
+    if missing:
+        raise AssertionError(f"the CLI's trace lacks {missing}: {names}")
+    if (out["cli_launches"]["flat_compact"] < 2
+            or out["cli_launches"]["flat_segscan"] < 1):
+        raise AssertionError(f"the CLI skipped a kernel: "
+                             f"{out['cli_launches']}")
+    out["trace_kernels"] = names
+    log(f"CLI --profile: {out['cli_profile_s']:.2f} s (CSV load included), "
+        f"trace {traces[0]} ({len(text):,} bytes) names {names}; launches "
+        f"{out['cli_launches']}; stderr {stderr.getvalue().strip()!r}; "
+        f"stdout starts {stdout.getvalue()[:60]!r}")
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli_main(["--table", f"t={path}", "--explain", MAIN_QUERY])
+    if rc != 0 or "Aggregate keys=[t.k]" not in stdout.getvalue():
+        raise AssertionError(f"the CLI's --explain failed: {rc}, "
+                             f"{stdout.getvalue()!r}")
+    log("CLI --explain: " + " | ".join(stdout.getvalue().strip().splitlines()))
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return out
 
 
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
@@ -1269,6 +1481,8 @@ def main() -> int:
                                     0)
     main_ms, main_all = time_query(torch, ctx, MAIN_QUERY)
     profile_query(torch, ctx, MAIN_QUERY)
+    debug_ms = {"main_query": debug_checks_overhead(
+        torch, H, ctx, MAIN_QUERY, f"query {N_MAIN:,} rows", main_ms)}
     del ctx
     torch.cuda.empty_cache()
     big, big_launches = run_query_check(torch, H, counters, N_LARGE,
@@ -1298,6 +1512,8 @@ def main() -> int:
     del facts, dims
     star_ms, star_all = time_query(torch, star, STAR_QUERY)
     profile_query(torch, star, STAR_QUERY)
+    debug_ms["star_join"] = debug_checks_overhead(
+        torch, H, star, STAR_QUERY, "star join", star_ms)
     del star
     torch.cuda.empty_cache()
     tpch = q3_data()
@@ -1309,6 +1525,8 @@ def main() -> int:
     del tpch
     q3_ms, q3_all = time_query(torch, q3, Q3_QUERY)
     profile_query(torch, q3, Q3_QUERY)
+    debug_ms["tpch_q3_sf1"] = debug_checks_overhead(
+        torch, H, q3, Q3_QUERY, "TPC-H Q3", q3_ms)
     del q3
     torch.cuda.empty_cache()
     log(f"star join: median {star_ms:.3f} ms of {star_all}")
@@ -1316,6 +1534,9 @@ def main() -> int:
 
     # -- phase 7: nested queries, windows and set operations --------------------
     nested_ms, nested_launches = phase_nested(torch, H, counters)
+
+    # -- phase 9: a CSV onto the card, the CLI and Context.profile ----------
+    csv_cli = phase_csv_cli(torch, H, counters, _lib.BUILD_DIR)
 
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}
@@ -1477,9 +1698,12 @@ def main() -> int:
                      "rows_100000000": big_launches,
                      "star_join": star_launches, "tpch_q3_sf1": q3_launches,
                      **nested_launches},
-        "dense_vs_sort_ms": vs_sort}
+        "dense_vs_sort_ms": vs_sort, "debug_checks_ms": debug_ms,
+        "csv_cli": csv_cli}
     for entry in report["kernels"]:
         entry["kernel_ms"] = kernel_ms[entry["name"]]
+    report["launches"]["csv_main_query"] = csv_cli.pop("launches")
+    report["launches"]["cli_profile"] = csv_cli.pop("cli_launches")
     log(json.dumps(report))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,17 @@ port is held against. The surface is the same BlazingSQL-style
 explicitly: ``Context(device="cuda")`` (the default) or ``"cpu"``.
 
 This package imports torch and numpy, never jax: framework-free modules of
-the JAX package (SQL parser, plan-time rewrites, ingest, persistence) are
-copied here, not imported. What it runs today is the single-table path —
-WHERE, GROUP BY with every aggregate, HAVING, DISTINCT, ORDER BY, OFFSET,
-LIMIT — with two kernels written for the card: stream compaction
-(``kernels/compact.py``) and segmented scan (``kernels/segscan.py``).
-Other SQL features raise ``PlanError`` naming the feature.
+the JAX package (SQL parser, plan-time rewrites, ingest, the native CSV
+loader, persistence) are copied here, not imported. It runs every
+single-device feature of the JAX package: WHERE, GROUP BY with every
+aggregate, HAVING, DISTINCT, ORDER BY, OFFSET, LIMIT, joins, derived tables,
+CTEs and views, subqueries, set operations, window functions, strings,
+``Context.profile``, ``EngineConfig.debug_checks`` and the CLI
+(``python -m harkdb_tpu_torch``). Four kernels are written by hand for the
+card: stream compaction (``kernels/compact.py``), segmented scan
+(``kernels/segscan.py``), segment expansion (``kernels/expand.py``) and the
+dense-key GROUP BY (``kernels/matmul_agg.py``). The one thing that raises is
+distributed execution, ``Context(mesh=...)``, until ``parallel/`` is ported.
 """
 
 from harkdb_tpu_torch.config import EngineConfig

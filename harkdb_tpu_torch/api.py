@@ -8,13 +8,17 @@ Counterpart of ``harkdb_tpu.api`` on one device chosen explicitly:
     → the device-resident result batch
   * ``explain``, views (``create_view`` / ``drop_view``), ``save`` / ``load``
     (the JAX package's checkpoint format: npz files + ``manifest.json``)
+  * ``profile`` → ``sql``'s matrix, with a ``torch.profiler`` trace
 
 Plans are cached on the Context keyed by (sql text, table signature).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+import tempfile
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,3 +200,28 @@ class Context:
 
     def explain(self, sql_statement: str) -> str:
         return self._plan(sql_statement).explain()
+
+    def profile(self, sql_statement: str,
+                trace_dir: Optional[str] = None) -> np.ndarray:
+        """Run a query under ``torch.profiler`` and return :meth:`sql`'s
+        matrix.
+
+        Records the host's activity, and the card's kernels when the
+        Context runs on CUDA, and writes one Chrome trace file
+        (``harkdb_<pid>_<ns>.json``; open it in Perfetto or
+        ``chrome://tracing``) into ``trace_dir``, created if missing
+        (default: ``harkdb_trace`` in the temporary directory).
+        """
+        from torch.profiler import ProfilerActivity, profile
+
+        if trace_dir is None:
+            trace_dir = os.path.join(tempfile.gettempdir(), "harkdb_trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            out = self.sql(sql_statement)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"harkdb_{os.getpid()}_{time.time_ns()}.json"))
+        return out

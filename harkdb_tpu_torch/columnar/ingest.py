@@ -14,8 +14,9 @@ semantics exactly — the device only ever sees dense int32. Every loader return
 ``(columns, headers, dicts)`` where ``dicts`` maps column name → np.ndarray of
 strings (absent for numeric columns).
 
-pandas is imported only by the loaders that need it (CSV, parquet, and a
-DataFrame source); dict and ndarray sources work without it.
+pandas is imported only by the loaders that need it (a CSV with text cells,
+parquet, and a DataFrame source); dict and ndarray sources and all-numeric
+CSVs (``io/native_csv.py``) work without it.
 """
 
 from __future__ import annotations
@@ -105,10 +106,22 @@ def load_np(
 
 
 def load_csv(path: str, config: EngineConfig) -> LoadResult:
-    # Reference: table.py:29-32 (pd.read_csv); string columns
-    # dictionary-encode in load_df.
-    import pandas as pd
+    # Reference: table.py:29-32 (pd.read_csv). The native loader reads an
+    # all-numeric file; pandas only one with text cells (string columns
+    # dictionary-encode in load_df).
+    from harkdb_tpu_torch.io.native_csv import native_read_csv
 
+    result = native_read_csv(path, config)
+    if result is not None:
+        cols, names = result
+        return cols, names, {}
+    try:
+        import pandas as pd
+    except ImportError as e:
+        raise ImportError(
+            f"loading {path!r} needs pandas, which is not installed: only "
+            f"all-numeric CSVs load without pandas"
+        ) from e
     df = pd.read_csv(path, skipinitialspace=True)
     return load_df(df, config)
 

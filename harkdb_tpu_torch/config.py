@@ -53,6 +53,11 @@ class EngineConfig:
 
     # ---- observability / safety ---------------------------------------------
     collect_metrics: bool = True
+    log_level: str = "WARNING"
+    # Validate engine invariants (ColumnBatch capacity / n_valid) at the
+    # planner's operator boundaries (utils/checks.py); each check reads
+    # n_valid back to the host.
+    debug_checks: bool = False
     # Re-execute a query once from resident tables on a transient device
     # failure (queries are pure).
     retry_on_failure: bool = True
@@ -65,6 +70,7 @@ class EngineConfig:
             int_dtype=_env("INT_DTYPE", str, base.int_dtype),
             float_dtype=_env("FLOAT_DTYPE", str, base.float_dtype),
             row_align=_env("ROW_ALIGN", int, base.row_align),
+            log_level=_env("LOG_LEVEL", str, base.log_level),
         )
 
     def replace(self, **kw) -> "EngineConfig":

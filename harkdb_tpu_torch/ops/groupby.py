@@ -175,10 +175,12 @@ def groupby_aggregate(
     slot_of: Dict[int, int] = {}                # agg index → end_arrays slot
     cum_base = 0
     if cum_cols:
-        S = torch.cumsum(torch.stack(cum_cols, dim=1), dim=0,
-                         dtype=cum_cols[0].dtype)
+        # One 1-D scan per column: torch's CUDA cumsum along dim 0 of an
+        # [n, C] stack scans each column serially in one thread (TPC-H Q1
+        # at SF 1, C = 3, took 644 ms on an H100 that way; PERF.md §6).
         cum_base = len(end_arrays)
-        end_arrays.extend(S[:, j].contiguous() for j in range(len(cum_cols)))
+        end_arrays.extend(torch.cumsum(c, 0, dtype=c.dtype)
+                          for c in cum_cols)
     sid = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
     for (op, _dt), members in scan_groups.items():
         scanned = _scan(op, sid, [c for _ai, c in members])

@@ -69,6 +69,7 @@ from harkdb_tpu_torch.sql.ast_nodes import (
     WindowFn, walk,
 )
 from harkdb_tpu_torch.sql.parser import parse_sql
+from harkdb_tpu_torch.utils.checks import debug_validate
 
 
 def _next_pow2(n: int) -> int:
@@ -1747,6 +1748,8 @@ class QueryPlan(StringLowering, NullSemantics):
                  stop_after_group: bool = False) -> ColumnBatch:
         cap = batch.capacity
         dev = batch.device
+        if self.config.debug_checks:
+            batch = debug_validate(batch, "phase_b input")
         # WHERE residual (post-join conjuncts, and conjuncts touching no
         # column; the others were pushed down). The predicate mask FUSES
         # into whichever downstream operator runs anyway (the dense
@@ -1767,6 +1770,8 @@ class QueryPlan(StringLowering, NullSemantics):
             if not absorbed:
                 batch = compact_batch(batch, where_mask)
                 where_mask = None
+                if self.config.debug_checks:
+                    batch = debug_validate(batch, "after WHERE")
 
         # GROUP BY + aggregates — the dense-key path when the gate admits
         # it (small int key span, sum/count only; span proven from table

@@ -8,8 +8,10 @@ paths' shapes — holds the
 running max / min (kernel B over one segment) against ``torch.cummax`` /
 ``torch.cummin``, and checks the main query, the joins, the dense-key
 GROUP BY and the nested queries (windows, set operations, a CTE, EXISTS,
-IN and a correlated subquery) on the card against the CPU port. Whether a
-card is present
+IN and a correlated subquery) on the card against the CPU port; loads a
+numeric CSV onto the card through the native loader, finds kernels A and B
+in a ``Context.profile`` trace and runs queries under ``debug_checks``.
+Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
 
@@ -224,3 +226,63 @@ def test_new_kernels_never_take_plain_version(cuda):
     matmul_agg.onehot_groupby_sums(offs, [offs], nv, 0, 32)
     assert (expand.LAUNCHES, matmul_agg.LAUNCHES) == (before[0] + 1,
                                                       before[1] + 1)
+
+
+def test_csv_loads_on_card_like_dict(cuda, tmp_path):
+    """A numeric CSV goes through the native loader onto the card and
+    answers as the dict-loaded table does."""
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(8)
+    n = 100_000
+    k = rng.integers(0, 5000, n).astype(np.int32)
+    v = rng.integers(-1000, 1000, n).astype(np.int32)
+    path = tmp_path / "t.csv"
+    with open(path, "w") as f:
+        f.write("k,v\n")
+        np.savetxt(f, np.stack([k, v], axis=1), fmt="%d", delimiter=",")
+    q = ("select k, sum(v) as s, max(v) as m, count(*) as c from t "
+         "where v > 0 group by k order by s desc")
+    from_csv = H.Context(device=cuda)
+    from_csv.create_table("t", str(path))
+    assert from_csv.tables["t"].columns["k"].is_cuda
+    from_dict = H.Context(device=cuda)
+    from_dict.create_table("t", {"k": k, "v": v})
+    np.testing.assert_array_equal(from_csv.sql(q), from_dict.sql(q))
+
+
+def test_profile_trace_names_the_kernels(cuda, tmp_path):
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(9)
+    n = 200_000
+    c = H.Context(device=cuda)
+    c.create_table("t", {"k": rng.integers(0, 1 << 14, n).astype(np.int32),
+                         "v": rng.integers(-1000, 1000, n).astype(np.int32)})
+    q = ("select k, sum(v) as s, max(v) as m, count(*) as c from t "
+         "where v > 0 group by k order by s desc")
+    np.testing.assert_array_equal(c.profile(q, str(tmp_path)), c.sql(q))
+    (trace,) = tmp_path.iterdir()
+    text = trace.read_text()
+    assert "compact_kernel" in text and "segscan_kernel" in text
+
+
+def test_debug_checks_on_card(cuda):
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(10)
+    n = 100_000
+    data = {"k": rng.integers(0, 300, n).astype(np.int32),
+            "v": rng.integers(-1000, 1000, n).astype(np.int32)}
+    dims = {"j": np.arange(300, dtype=np.int32),
+            "w": rng.integers(-1000, 1000, 300).astype(np.int32)}
+    checked = H.Context(H.EngineConfig(debug_checks=True), device=cuda)
+    plain = H.Context(device=cuda)
+    for c in (checked, plain):
+        c.create_table("t", data)
+        c.create_table("d", dims)
+    for q in ("select k, sum(v) as s from t where v > 0 group by k "
+              "order by s desc",
+              "select t.k, t.v, d.w from t join d on t.k = d.j "
+              "where t.v < d.w order by t.k, t.v, d.w"):
+        np.testing.assert_array_equal(checked.sql(q), plain.sql(q))

@@ -4,11 +4,12 @@ The same SQL runs through ``harkdb_tpu.Context`` (JAX on the CPU) and
 ``harkdb_tpu_torch.Context(device="cpu")`` over the same tables: the main
 query of the port's slice, the single-table corpus of tests/test_sql.py,
 the star join and the dense-key GROUP BY (rows and plan fields), TPC-H
-Q3, Q4, Q5, Q13 and Q17's shapes, ``explain`` of a 3-way join, error texts
+Q1, Q3, Q4, Q5, Q13 and Q17's shapes, ``explain`` of a 3-way join, error texts
 (compared verbatim), one query of each nested feature (window functions,
 set operations, derived tables / CTEs / views, IN / EXISTS / scalar and
 correlated subqueries), the two routes that carry the JAX package's tables
-over, and the import boundary (no jax). Integer outputs must be
+over, and the import boundary (no jax, no pandas: also for a numeric CSV,
+``debug_checks`` and the CLI). Integer outputs must be
 bit-identical; float32 outputs use rtol=1e-6, atol=0. The join / NULL
 corpus is tests/test_torch_joins.py; the nested features' corpora are
 tests/test_torch_derived.py, test_torch_subqueries.py,
@@ -430,6 +431,43 @@ def tpch_contexts():
     return _pair(_tpch_tables())
 
 
+Q1_QUERY = (
+    "select discount, sum(qty) as sq, sum(price * qty) as sp, "
+    "avg(price) as ap, count(*) as n from lineitem "
+    "where ship <= 300 group by discount order by discount"
+)
+
+
+def test_q1_pricing_summary(tpch_contexts):
+    """tests/test_tpch_mini.py Q1: a GROUP BY over ten discount keys with
+    a sum of a product and an AVG; rows, plan fields and explain."""
+    j, p = tpch_contexts
+    _assert_plan_parity(j, p, Q1_QUERY)
+    assert p.explain(Q1_QUERY) == j.explain(Q1_QUERY)
+    assert p.sql(Q1_QUERY)[:, 0].tolist() == list(range(10))
+
+
+def test_group_by_sums_scan_one_column_at_a_time(monkeypatch):
+    """Q1's three int sums are three 1-D cumsums, never one cumsum along dim
+    0 of a 2-D stack (torch's CUDA kernel scans such a stack's columns
+    serially: 644 ms for Q1 at SF 1 on an H100)."""
+    import torch
+
+    dims = []
+    real = torch.cumsum
+
+    def cumsum(x, *args, **kw):
+        dims.append(x.dim())
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(torch, "cumsum", cumsum)
+    p = harkdb_tpu_torch.Context(device="cpu")
+    for name, src in _tpch_tables().items():
+        p.create_table(name, src)
+    p.sql(Q1_QUERY)
+    assert dims and set(dims) == {1}
+
+
 @pytest.mark.parametrize("name", sorted(TPCH_NESTED))
 def test_tpch_nested_shapes(tpch_contexts, name):
     j, p = tpch_contexts
@@ -477,12 +515,25 @@ def test_save_load_round_trip(tmp_path, contexts):
         np.testing.assert_array_equal(q.sql(query), p.sql(query))
 
 
-def test_import_leaves_jax_out():
+def test_import_leaves_jax_out(tmp_path):
+    """The package, a numeric CSV through the native loader, a query under
+    ``debug_checks`` and the CLI's ``--explain`` import neither jax, the
+    JAX package nor pandas."""
+    csv = tmp_path / "n.csv"
+    csv.write_text("k,v\n1,3\n2,4\n2,5\n")
     code = ("import sys, harkdb_tpu_torch\n"
+            "from harkdb_tpu_torch.__main__ import main\n"
             "c = harkdb_tpu_torch.Context(device='cpu')\n"
             "c.create_table('t', {'k': [1, 2, 2], 'v': [3, 4, 5]})\n"
             "assert c.sql('select k, sum(v) from t group by k').tolist() "
             "== [[1, 3], [2, 9]]\n"
+            "d = harkdb_tpu_torch.Context(harkdb_tpu_torch.EngineConfig("
+            "debug_checks=True), device='cpu')\n"
+            f"d.create_table('n', {str(csv)!r})\n"
+            "assert d.sql('select k, sum(v) from n where v > 3 group by k')"
+            ".tolist() == [[2, 9]]\n"
+            f"assert main(['--cpu', '--table', 'n={csv}', '--explain', "
+            "'select k from n']) == 0\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'harkdb_tpu.')) or m == 'harkdb_tpu']\n"
             "assert not bad, bad\n"
@@ -491,6 +542,7 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    assert "Scan n as n" in out.stdout
 
 
 def test_context_device_and_mesh():
