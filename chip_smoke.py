@@ -57,7 +57,19 @@ Phases, each printing its results on lines of its own:
      it onto the card with ``create_table`` (the native loader; host time
      and rows/s logged), check the main query on it against the oracle and
      the dict-loaded table, then run the CLI in-process with ``--profile``
-     (its trace must name kernels A and B) and ``--explain``.
+     (its trace must name kernels A and B) and ``--explain``;
+ 10. the mesh: spawn 4 ranks sharing ``cuda:0`` over gloo
+     (``parallel/multihost.init_multihost``) and run in every rank, at full
+     width, the main query on 2^24 rows, the star join, TPC-H Q3 at SF 1, a
+     star join whose facts have 90% of their rows on one key (salted), a
+     ``median`` + ``count(distinct)`` GROUP BY and an ORDER BY ... LIMIT
+     under ``dist_tail`` True and False; every rank's whole result must
+     equal the numpy oracle and the single-device port's bit for bit, and
+     kernels A, B, C and D must launch on every rank. Each query is timed
+     warm (median of 5; 4 ranks share one card: not a scaling figure). With
+     more than one card the same runs on NCCL, one rank per card; else one
+     line says it was skipped. The exchange's stable partition is timed
+     as four launches of kernel A (the port's form) against a sort.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -1334,6 +1346,700 @@ def phase_csv_cli(torch, H, counters, build_dir):
     return out
 
 
+# -- phase 10: the mesh ---------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_NOTE = "4 ranks share one card: not a scaling figure"
+SKEW_KEY = 7                      # the skewed join's hot probe key
+MEDIAN_QUERY = ("select k % 64 as b, median(v) as md, count(distinct v) "
+                "as d from t group by k % 64 order by b")
+TOPK_QUERY = ("select k, v from t where v > 990 order by v desc, k "
+              "limit 1000")
+# Phase 10's cases per table set: (name, query, EngineConfig overrides).
+MESH_SETS = [
+    ("bench", [("main_query", MAIN_QUERY, {}),
+               ("median_countd", MEDIAN_QUERY, {}),
+               ("orderby_limit", TOPK_QUERY, {}),
+               ("orderby_limit_gather", TOPK_QUERY, {"dist_tail": False})]),
+    ("star", [("star_join", STAR_QUERY, {})]),
+    ("skew", [("skewed_join", STAR_QUERY, {})]),
+    ("tpch", [("tpch_q3_sf1", Q3_QUERY, {})]),
+]
+
+
+def skew_data():
+    """The star join's tables with 90% of the facts on one key
+    (``SKEW_KEY``): salting spreads its probe rows over every rank and
+    copies its one dims row to each."""
+    facts, dims = star_data()
+    rng = np.random.default_rng(1)
+    hot = rng.random(N_MAIN) < 0.9
+    facts["k"] = np.where(hot, SKEW_KEY, facts["k"]).astype(np.int32)
+    return {"facts": facts, "dims": dims}
+
+
+def mesh_tables(name: str):
+    if name == "bench":
+        k, v = table_data(N_MAIN)
+        return {"t": {"k": k, "v": v}}
+    if name == "star":
+        facts, dims = star_data()
+        return {"facts": facts, "dims": dims}
+    if name == "skew":
+        return skew_data()
+    return q3_data()
+
+
+def median_oracle(k, v) -> np.ndarray:
+    """MEDIAN_QUERY in numpy: per k % 64, the median (the mean of the two
+    middle values for an even count, as float32) and the distinct count."""
+    b = k % 64
+    order = np.lexsort((v, b))
+    sb, sv = b[order], v[order]
+    starts = np.searchsorted(sb, np.arange(64))
+    ends = np.r_[starts[1:], sb.shape[0]]
+    n = ends - starts
+    lo = sv[starts + (n - 1) // 2].astype(np.float32)
+    hi = sv[starts + n // 2].astype(np.float32)
+    md = lo * np.float32(0.5) + hi * np.float32(0.5)
+    new = np.r_[True, (sv[1:] != sv[:-1]) | (sb[1:] != sb[:-1])]
+    d = np.add.reduceat(new.astype(np.int64), starts)
+    return np.stack([np.arange(64), md, d], axis=1).astype(np.float64)
+
+
+def topk_oracle(k, v) -> np.ndarray:
+    keep = v > 990
+    ks, vs = k[keep], v[keep]
+    order = np.lexsort((ks, -vs.astype(np.int64)))[:1000]
+    return np.stack([ks[order], vs[order]], axis=1).astype(np.int32)
+
+
+def mesh_oracles() -> dict:
+    k, v = table_data(N_MAIN)
+    out = {"main_query": oracle(k, v), "median_countd": median_oracle(k, v),
+           "orderby_limit": topk_oracle(k, v)}
+    out["orderby_limit_gather"] = out["orderby_limit"]
+    facts, dims = star_data()
+    out["star_join"] = star_oracle(facts, dims)
+    skew = skew_data()
+    out["skewed_join"] = star_oracle(skew["facts"], skew["dims"])
+    out["tpch_q3_sf1"] = q3_oracle(q3_data())
+    return out
+
+
+def _digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(f"{a.shape}{a.dtype}".encode()
+                          + np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _clone(x):
+    """``x`` with every tensor in it (in lists, tuples, dicts) cloned."""
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
+def _word_err(torch, got, ref) -> int:
+    """Largest difference of the two tensors' 32-bit words (0: bit for
+    bit equal)."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    if got.numel() == 0:
+        return 0
+    a = got.contiguous().view(torch.int32).to(torch.int64)
+    b = ref.contiguous().view(torch.int32).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+class MeshAudit:
+    """Kernels A-D at the shapes the mesh path gives them, on one rank of
+    phase 10. While installed, every call of ``flat_compact``,
+    ``flat_segscan``, ``onehot_groupby_sums`` and ``expand_fills`` (and so
+    ``expand_ids``) made by the port also runs the wrapper's plain version
+    on the same inputs, which must equal it bit for bit (a float add or mul
+    scan within FLOAT_ADD_RTOL of the sum of |x|, as phase 3 holds it). It
+    counts each form's calls and launches (``flat_segscan`` with segment
+    ids and over one segment apart) and keeps the inputs of each form's
+    largest call, which :meth:`report` then times against the plain
+    version and the library call. The wrappers are replaced wherever a
+    module of the port holds them, so every import form is caught; a plan
+    that kept a reference to a replaced wrapper past :meth:`remove` calls
+    straight through to the kernel, unchecked and uncounted."""
+
+    FORMS = ("flat_compact", "flat_segscan", "flat_segscan_one_segment",
+             "onehot_groupby_sums", "expand_fills")
+
+    def __init__(self, torch):
+        from harkdb_tpu_torch.kernels import (
+            compact, expand, matmul_agg, segscan,
+        )
+
+        self.torch = torch
+        self.mods = {"flat_compact": compact, "flat_segscan": segscan,
+                     "onehot_groupby_sums": matmul_agg,
+                     "expand_fills": expand}
+        self.forms = {}
+        self.case = None
+        self.armed = False
+        self._patched = []
+
+    def install(self, case: str) -> None:
+        self.case, self.armed = case, True
+        for name, mod in self.mods.items():
+            orig = getattr(mod, name)
+            audited = getattr(self, f"_audit_{name}")(orig, mod)
+            for m in list(sys.modules.values()):
+                if (getattr(m, "__name__", "").startswith("harkdb_tpu_torch")
+                        and vars(m).get(name) is orig):
+                    setattr(m, name, audited)
+                    self._patched.append((m, name, orig))
+
+    def remove(self) -> None:
+        self.armed = False
+        for m, name, orig in reversed(self._patched):
+            setattr(m, name, orig)
+        self._patched = []
+
+    def _record(self, form, mod, before, work, err, args, shape) -> None:
+        f = self.forms.setdefault(form, {"calls": 0, "launches": 0,
+                                         "max_abs_err": 0, "work": -1})
+        f["calls"] += 1
+        f["launches"] += mod.LAUNCHES - before
+        f["max_abs_err"] = max(f["max_abs_err"], err)
+        if work > f["work"]:
+            f.update(work=work, case=self.case, shape=shape,
+                     args=_clone(args))
+
+    def _audit_flat_compact(self, orig, mod):
+        torch = self.torch
+
+        def flat_compact(cols, mask, n_valid):
+            before = mod.LAUNCHES
+            out, cnt = orig(cols, mask, n_valid)
+            if not self.armed or mask.device.type != "cuda":
+                return out, cnt
+            ref, rcnt = mod.flat_compact_reference(cols, mask, n_valid)
+            c = int(rcnt)
+            err = abs(int(cnt) - c)
+            for k in cols:
+                err = max(err, _word_err(torch, out[k][:c], ref[k][:c]))
+            if err:
+                raise AssertionError(f"{self.case}: kernel A differs from "
+                                     f"its plain version at {mask.shape[0]} "
+                                     f"rows x {len(cols)} columns")
+            self._record("flat_compact", mod, before,
+                         mask.shape[0] * len(cols), err, (cols, mask, n_valid),
+                         f"{mask.shape[0]} rows x {len(cols)} columns, "
+                         f"{c} kept")
+            return out, cnt
+        return flat_compact
+
+    def _audit_flat_segscan(self, orig, mod):
+        torch = self.torch
+
+        def flat_segscan(op_name, sid, cols, neutral, reverse=False):
+            cols = list(cols)
+            before = mod.LAUNCHES
+            got = orig(op_name, sid, cols, neutral, reverse)
+            if not self.armed or cols[0].device.type != "cuda":
+                return got
+            ref = mod.flat_segscan_reference(op_name, sid, cols, neutral,
+                                             reverse)
+            err = 0
+            for g, r, x in zip(got, ref, cols):
+                if g.dtype.is_floating_point and op_name in ("add", "mul"):
+                    bound = (r.abs() if op_name == "mul" else
+                             mod.flat_segscan_reference(
+                                 "add", sid, [x.abs()], 0.0, reverse)[0])
+                    diff = torch.where(g == r, torch.zeros_like(g),
+                                       (g - r).abs())
+                    ok = bool((diff <= FLOAT_ADD_RTOL * bound + 1e-6).all())
+                    e = float(diff.max()) if diff.numel() else 0.0
+                else:
+                    same = g == r
+                    if g.dtype.is_floating_point:
+                        same |= torch.isnan(g) & torch.isnan(r)
+                    ok, e = bool(same.all()), 0
+                if not ok:
+                    raise AssertionError(
+                        f"{self.case}: kernel B ({op_name}, {g.dtype}, sid "
+                        f"{'given' if sid is not None else 'none'}) differs "
+                        f"from its plain version")
+                err = max(err, e)
+            n = cols[0].shape[0]
+            form = ("flat_segscan" if sid is not None
+                    else "flat_segscan_one_segment")
+            self._record(form, mod, before, n * len(cols), err,
+                         (op_name, sid, cols, neutral, reverse),
+                         f"{op_name} over {n} rows x {len(cols)} "
+                         f"{cols[0].dtype} columns"
+                         f"{', reversed' if reverse else ''}")
+            return got
+        return flat_segscan
+
+    def _audit_onehot_groupby_sums(self, orig, mod):
+        torch = self.torch
+
+        def onehot_groupby_sums(key, value_cols, n_valid, key_min, span,
+                                mask=None):
+            value_cols = list(value_cols)
+            before = mod.LAUNCHES
+            got = orig(key, value_cols, n_valid, key_min, span, mask)
+            if not self.armed or key.device.type != "cuda":
+                return got
+            ref = mod.onehot_groupby_sums_reference(
+                key, value_cols, n_valid, key_min, span, mask)
+            err = max(_word_err(torch, g, r) for g, r in zip(
+                [got[0], *got[1], got[2]], [ref[0], *ref[1], ref[2]]))
+            if err:
+                raise AssertionError(f"{self.case}: kernel C differs from "
+                                     f"its plain version at span {span}")
+            self._record("onehot_groupby_sums", mod, before,
+                         key.shape[0] * (1 + len(value_cols)), err,
+                         (key, value_cols, n_valid, key_min, span, mask),
+                         f"{key.shape[0]} rows, span {span}, "
+                         f"{len(value_cols)} sum columns, "
+                         f"{'a' if mask is not None else 'no'} mask")
+            return got
+        return onehot_groupby_sums
+
+    def _audit_expand_fills(self, orig, mod):
+        torch = self.torch
+
+        def expand_fills(offsets, n_src, out_capacity, extra_values=()):
+            extra_values = list(extra_values)
+            before = mod.LAUNCHES
+            got = orig(offsets, n_src, out_capacity, extra_values)
+            if not self.armed or offsets.device.type != "cuda":
+                return got
+            ref = mod.expand_fills_reference(offsets, n_src, out_capacity,
+                                             extra_values)
+            err = max(_word_err(torch, g, r) for g, r in zip(
+                [got[0], got[1], *got[2]], [ref[0], ref[1], *ref[2]]))
+            if err:
+                raise AssertionError(f"{self.case}: kernel D differs from "
+                                     f"its plain version")
+            self._record("expand_fills", mod, before,
+                         out_capacity * (2 + len(extra_values)), err,
+                         (offsets, n_src, out_capacity, extra_values),
+                         f"{int(n_src)} segments of {offsets.shape[0]} into "
+                         f"{out_capacity} slots, {len(extra_values)} extra "
+                         f"planes")
+            return got
+        return expand_fills
+
+    def report(self) -> dict:
+        """Each form seen: its calls and launches over the audited runs,
+        the largest error, and its largest call's shape, case, kernel time
+        (and host time a call, and the kernel alone), plain-version time,
+        bytes and library-call time. Every form must have been seen."""
+        torch = self.torch
+        missing = [f for f in self.FORMS if f not in self.forms]
+        if missing:
+            raise AssertionError(f"the mesh path made no call of {missing}")
+        compact, segscan = self.mods["flat_compact"], self.mods["flat_segscan"]
+        agg, expand = self.mods["onehot_groupby_sums"], self.mods["expand_fills"]
+        out = {}
+        for form, f in self.forms.items():
+            args = f.pop("args")
+            if form == "flat_compact":
+                cols, mask, nv = args
+                kernel = lambda: compact.flat_compact(cols, mask, nv)
+                plain = lambda: compact.flat_compact_reference(cols, mask, nv)
+                keep = mask & (torch.arange(mask.shape[0],
+                                            device=mask.device) < nv)
+                stacked = torch.stack(list(cols.values()))
+                library = lambda: stacked[:, keep]
+                nbytes = compact_bytes(torch, len(cols), mask, nv)
+                name = "compact_kernel"
+            elif form.startswith("flat_segscan"):
+                op, sid, cols, ne, rev = args
+                kernel = lambda: segscan.flat_segscan(op, sid, cols, ne, rev)
+                plain = lambda: segscan.flat_segscan_reference(
+                    op, sid, cols, ne, rev)
+                lib_op = {"add": torch.cumsum, "mul": torch.cumprod,
+                          "max": torch.cummax, "min": torch.cummin}[op]
+
+                def library():
+                    for c in cols:
+                        x = torch.flip(c, [0]) if rev else c
+                        lib_op(x, 0)
+                library = library if sid is None else None
+                nbytes = 4 * cols[0].shape[0] * (2 * len(cols)
+                                                 + (sid is not None))
+                name = "segscan_kernel"
+            elif form == "onehot_groupby_sums":
+                key, vals, nv, kmin, span, mask = args
+                kernel = lambda: agg.onehot_groupby_sums(key, vals, nv, kmin,
+                                                         span, mask)
+                plain = lambda: agg.onehot_groupby_sums_reference(
+                    key, vals, nv, kmin, span, mask)
+                library = None
+                nbytes = dense_agg_bytes(key, vals, mask, span)
+                name = "dense_agg"
+            else:
+                offs, n_src, cap, extras = args
+                kernel = lambda: expand.expand_fills(offs, n_src, cap, extras)
+                plain = lambda: expand.expand_fills_reference(offs, n_src,
+                                                              cap, extras)
+                library = None
+                nbytes = expand_bytes(offs, n_src, cap, extras)
+                name = "expand_kernel"
+            f["ms"], f["host_ms"] = time_cuda(torch, kernel, host=True)
+            f["plain_ms"] = time_cuda(torch, plain)
+            f["kernel_ms"] = kernel_only_ms(torch, kernel, name)
+            if form == "onehot_groupby_sums":
+                f["library_ms"] = library_index_add(
+                    torch, time_cuda, key, vals[0], kmin, span, log)
+            elif form == "expand_fills":
+                f["library_ms"] = library_searchsorted(torch, time_cuda, offs,
+                                                       n_src, cap)
+            else:
+                f["library_ms"] = (None if library is None
+                                   else time_cuda(torch, library))
+            f["bytes"] = nbytes
+            del args
+            out[form] = f
+        return out
+
+
+def mesh_rank(rank, size, coordinator, backend, device, results,
+              audit=True) -> None:
+    """One rank of phase 10 (a spawned process): every case of MESH_SETS
+    through ``Context(mesh=...)`` with its launches counted (on rank 0,
+    with ``audit``, every kernel call held against its plain version:
+    :class:`MeshAudit`), then timed warm (each run starts after a
+    barrier). Puts ``(rank, True, report)`` or ``(rank, False,
+    traceback)``."""
+    import traceback
+
+    try:
+        results.put((rank, True, _mesh_rank(rank, size, coordinator,
+                                            backend, device, audit)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _mesh_rank(rank, size, coordinator, backend, device, audit) -> dict:
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import harkdb_tpu_torch as H
+    from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
+    from harkdb_tpu_torch.parallel.multihost import init_multihost
+    from harkdb_tpu_torch.parallel.skew import detect_hot_keys
+
+    counters = {"flat_compact": (compact, "LAUNCHES"),
+                "flat_segscan": (segscan, "LAUNCHES"),
+                "flat_segscan_one_segment": (segscan,
+                                             "ONE_SEGMENT_LAUNCHES"),
+                "onehot_groupby_sums": (matmul_agg, "LAUNCHES"),
+                "expand_fills": (expand, "LAUNCHES")}
+    # the card does the work; more host threads than cores per rank only
+    # make the ranks' collectives wait on each other
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    mesh = init_multihost(coordinator, size, rank, backend=backend,
+                          device=device, timeout_s=600)
+    one = torch.ones(1, dtype=torch.int64, device=mesh.device)
+    out = {"cases": {}, "launches": {k: 0 for k in counters}}
+    auditor = MeshAudit(torch) if audit and rank == 0 else None
+    try:
+        for set_name, cases in MESH_SETS:
+            tables = mesh_tables(set_name)
+            for name, query, cfg in cases:
+                ctx = H.Context(H.EngineConfig(**cfg), mesh=mesh)
+                for tname, cols in tables.items():
+                    ctx.create_table(tname, cols)
+                if auditor is not None:
+                    auditor.install(name)
+                reset_launches(counters)
+                try:
+                    got = ctx.sql(query)
+                    launches = read_launches(counters)
+                finally:
+                    if auditor is not None:
+                        auditor.remove()
+                for k, n in launches.items():
+                    out["launches"][k] += n
+                times = []
+                for _ in range(5):
+                    mesh.all_reduce(one)               # start together
+                    torch.cuda.synchronize(mesh.device)
+                    t0 = time.perf_counter()
+                    ctx.sql(query)
+                    torch.cuda.synchronize(mesh.device)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                entry = {"digest": _digest(got), "launches": launches,
+                         "ms": statistics.median(times), "all_ms": times,
+                         "last_fast_span": ctx._plan(query).last_fast_span,
+                         "profile": mesh_profile(torch, ctx, query,
+                                                 rank == 0)}
+                if rank == 0:
+                    entry["result"] = got
+                if name == "skewed_join":
+                    sb = ctx._shard_cache[("facts", "facts", None)]
+                    H_, HV = detect_hot_keys(sb.columns["facts.k"], sb.count,
+                                             mesh.size, 0.25, mesh)
+                    entry["hot_keys"] = sorted(H_[HV].tolist())
+                out["cases"][name] = entry
+                del ctx
+            del tables
+            torch.cuda.empty_cache()
+        if auditor is not None:
+            out["audit"] = auditor.report()
+        mesh.all_reduce(one)          # the others wait while rank 0 times
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_profile(torch, ctx, query, on: bool, top: int = 12) -> dict:
+    """One more run of ``query`` on every rank (the collectives need them
+    all), under torch.profiler where ``on``: wall time, the device's busy
+    time, and the host operators with the most self time (the
+    collectives and the card-to-host copies of a gloo mesh among them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not on:
+        ctx.sql(query)
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.sql(query)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
+                   for a in prof.key_averages()),
+                  key=lambda x: -x[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "host_self_ms": host}
+
+
+def run_mesh(torch, backend: str, n_ranks: int, devices, timeout_s=900,
+             target=None):
+    """Spawn ``n_ranks`` processes of ``target`` (:func:`mesh_rank` by
+    default; rank r on ``devices[r]``) and collect their reports; a failing
+    or silent rank kills them all and raises."""
+    import multiprocessing
+    import queue
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target or mesh_rank, args=(
+        r, n_ranks, coordinator, backend, devices[r], results))
+        for r in range(n_ranks)]
+    for p in procs:
+        p.start()
+    reports, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(reports) < n_ranks:
+            try:
+                rank, ok, value = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(
+                    f"mesh phase: ranks {sorted(set(range(n_ranks)) - set(reports))}"
+                    f" gave no answer in {timeout_s} s") from None
+            if not ok:
+                raise RuntimeError(f"mesh phase: rank {rank} failed:\n{value}")
+            reports[rank] = value
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [reports[r] for r in range(n_ranks)]
+
+
+def single_device_results(torch, H) -> dict:
+    """Every phase 10 case through ``Context(device="cuda")``."""
+    out = {}
+    for set_name, cases in MESH_SETS:
+        tables = mesh_tables(set_name)
+        for name, query, cfg in cases:
+            ctx = H.Context(H.EngineConfig(**cfg), device="cuda")
+            for tname, cols in tables.items():
+                ctx.create_table(tname, cols)
+            out[name] = ctx.sql(query)
+            del ctx
+        del tables
+        torch.cuda.empty_cache()
+    return out
+
+
+def bucketize_forms(torch, n=N_MAIN // MESH_RANKS) -> dict:
+    """The exchange's stable partition by destination rank at a rank's
+    share of bench-2^24 (2^22 rows, three int32 words a row, 4 buckets):
+    four launches of kernel A, one per bucket (``parallel/shuffle.
+    bucketize``, the port's form) against one stable sort of the
+    destinations and a gather of the word matrix; the same rows in the
+    same order, CUDA events."""
+    from harkdb_tpu_torch.parallel.shuffle import bucketize, hash_to_bucket
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    words = torch.randint(-2**31, 2**31 - 1, (n, 3), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    cols = [words[:, j].contiguous() for j in range(3)]
+    dest = hash_to_bucket(cols[0], MESH_RANKS)
+    nv = torch.full((), n, dtype=torch.int32, device="cuda")
+
+    def by_kernel_a():
+        return bucketize(cols, dest, nv, MESH_RANKS)
+
+    def by_sort():
+        order = torch.sort(dest.to(torch.uint8), stable=True).indices
+        return words[order]
+
+    buckets, counts = by_kernel_a()
+    sorted_rows, start = by_sort(), 0
+    for j, c in enumerate(counts.tolist()):
+        if not torch.equal(torch.stack([w[:c] for w in buckets[j]], 1),
+                           sorted_rows[start:start + c]):
+            raise AssertionError(f"bucket {j}: the two partitions differ")
+        start += c
+    out = {"kernel_a_ms": time_cuda(torch, by_kernel_a),
+           "sort_ms": time_cuda(torch, by_sort)}
+    log(f"exchange partition of {n:,} rows x 3 words into {MESH_RANKS} "
+        f"buckets: {MESH_RANKS} launches of kernel A (the port's form) "
+        f"{out['kernel_a_ms']:.4f} ms, stable sort + gather "
+        f"{out['sort_ms']:.4f} ms; the same rows")
+    return out
+
+
+def check_mesh_audit(rank0: dict, label: str) -> dict:
+    """Rank 0's :class:`MeshAudit` report: it must have seen every launch
+    the counters saw (so every kernel call of the mesh path was held
+    against its plain version); logs each form's row."""
+    audit, seen = rank0["audit"], rank0["launches"]
+    by_form = {f: a["launches"] for f, a in audit.items()}
+    want = dict(seen)
+    want["flat_segscan"] -= seen["flat_segscan_one_segment"]
+    if by_form != want:
+        raise AssertionError(f"{label}: the audit saw launches {by_form}, "
+                             f"the counters {want}")
+    for form, a in audit.items():
+        log(f"{label} rank 0, {form} at the mesh path's shapes: {a['calls']} "
+            f"calls, {a['launches']} launches, each equal to its plain "
+            f"version (max abs err {a['max_abs_err']}); largest call "
+            f"({a['case']}: {a['shape']}) {a['ms']:.4f} ms (host "
+            f"{a['host_ms']:.4f}, kernel alone {a['kernel_ms']:.4f}) vs "
+            f"plain {a['plain_ms']:.4f} ms vs library {a['library_ms']} ms, "
+            f"bound {a['bytes'] / HBM_BYTES_PER_MS:.4f} ms")
+    return audit
+
+
+def phase_mesh(torch, H) -> dict:
+    """Phase 10: MESH_SETS' queries on MESH_RANKS gloo ranks sharing
+    ``cuda:0``, every rank's whole result against the numpy oracle and
+    the single-device port's, bit for bit; kernels A-D launched on every
+    rank; each query timed warm. Then the same on NCCL, one rank per card,
+    where more than one card is visible."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    oracles = mesh_oracles()
+    single = single_device_results(torch, H)
+    for name, expect in oracles.items():
+        if not np.array_equal(single[name], expect):
+            raise AssertionError(f"{name}: the single-device port differs "
+                                 f"from its numpy oracle")
+    log(f"phase 10 oracles and single-device results: "
+        f"{time.perf_counter() - t0:.1f} s")
+    report = {"note": MESH_NOTE, "runs": {}}
+    runs = [("gloo", MESH_RANKS, ["cuda:0"] * MESH_RANKS)]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        n = min(cards, MESH_RANKS)
+        runs.append(("nccl", n, [f"cuda:{r}" for r in range(n)]))
+    else:
+        log(f"NCCL mesh run skipped: {cards} card visible, NCCL needs a "
+            f"card per rank")
+    for backend, n_ranks, devices in runs:
+        t0 = time.perf_counter()
+        ranks = run_mesh(torch, backend, n_ranks, devices)
+        wall = time.perf_counter() - t0
+        for r, rep in enumerate(ranks):
+            for name, entry in rep["cases"].items():
+                if entry["digest"] != ranks[0]["cases"][name]["digest"]:
+                    raise AssertionError(f"{backend} {name}: rank {r}'s "
+                                         f"result differs from rank 0's")
+            short = [k for k in ("flat_compact", "flat_segscan",
+                                 "onehot_groupby_sums", "expand_fills")
+                     if rep["launches"][k] == 0]
+            if short:
+                raise AssertionError(f"{backend}: rank {r} never launched "
+                                     f"{short}: {rep['launches']}")
+        cases = ranks[0]["cases"]
+        for name, entry in cases.items():
+            got = entry.pop("result")
+            entry["rows"] = got.shape[0]
+            for what, expect in (("numpy oracle", oracles[name]),
+                                 ("single-device port", single[name])):
+                if got.shape != expect.shape or not np.array_equal(got,
+                                                                   expect):
+                    raise AssertionError(f"{backend} {name} differs from "
+                                         f"the {what}")
+        if cases["star_join"]["last_fast_span"] != DIM_SPAN:
+            raise AssertionError("the distributed star join skipped the "
+                                 "dense path (kernel C)")
+        if SKEW_KEY not in cases["skewed_join"]["hot_keys"]:
+            raise AssertionError("the skewed join's hot key was not "
+                                 "nominated for salting")
+        label = (MESH_NOTE if backend == "gloo"
+                 else f"{n_ranks} ranks, one card each")
+        for name, entry in cases.items():
+            log(f"mesh {backend} x{n_ranks} {name}: {entry['rows']:,} rows "
+                f"equal to the numpy oracle and the single-device port on "
+                f"every rank; median {entry['ms']:.3f} ms of "
+                f"{[round(t, 3) for t in entry['all_ms']]} ({label}); rank 0 "
+                f"launches {entry['launches']}")
+        for name, entry in cases.items():
+            prof = entry.pop("profile")
+            log(f"mesh {backend} x{n_ranks} {name} profiled on rank 0: wall "
+                f"{prof['wall_ms']:.3f} ms, device busy "
+                f"{prof['device_busy_ms']:.3f} ms "
+                f"({100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%); "
+                f"host self time (ms, calls): "
+                + "; ".join(f"{k[:40]} {ms:.2f} x{c}"
+                            for k, ms, c in prof["host_self_ms"]))
+            entry["device_busy_ms"] = prof["device_busy_ms"]
+        log(f"mesh {backend} x{n_ranks}: launches per rank over the phase "
+            f"{[rep['launches'] for rep in ranks]}; hot keys of the skewed "
+            f"join {cases['skewed_join']['hot_keys']}; {wall:.1f} s")
+        audit = check_mesh_audit(ranks[0], f"mesh {backend} x{n_ranks}")
+        report["runs"][backend] = {
+            "ranks": n_ranks, "devices": devices, "seconds": wall,
+            "query_ms": {n: e["ms"] for n, e in cases.items()},
+            "device_busy_ms": {n: e["device_busy_ms"]
+                               for n, e in cases.items()},
+            "launches_per_rank": [rep["launches"] for rep in ranks],
+            "audit": audit,
+            "launches_by_case": {
+                n: [rep["cases"][n]["launches"] for rep in ranks]
+                for n in cases},
+        }
+    report["bucketize"] = bucketize_forms(torch)
+    return report
+
+
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
     """Bytes kernel A's work must move: the mask, each 32-byte sector (8
     rows) of each column that holds a kept row, and each kept word out."""
@@ -1538,6 +2244,9 @@ def main() -> int:
     # -- phase 9: a CSV onto the card, the CLI and Context.profile ----------
     csv_cli = phase_csv_cli(torch, H, counters, _lib.BUILD_DIR)
 
+    # -- phase 10: the mesh, 4 gloo ranks sharing this card -----------------
+    mesh = phase_mesh(torch, H)
+
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}
     a_ms, a_host = time_cuda(
@@ -1699,9 +2408,46 @@ def main() -> int:
                      "star_join": star_launches, "tpch_q3_sf1": q3_launches,
                      **nested_launches},
         "dense_vs_sort_ms": vs_sort, "debug_checks_ms": debug_ms,
-        "csv_cli": csv_cli}
+        "csv_cli": csv_cli, "mesh": mesh}
+    # Each row's launches on every rank of phase 10 (4 gloo ranks): over
+    # all its queries for a kernel's main row, in the query of the row's
+    # shape for D (the star join, Q3); C at span 1 and 16384 x 3 runs in no
+    # query there either.
+    gloo = mesh["runs"]["gloo"]
+    by_case = {"expand_fills": ("star_join", "expand_fills"),
+               "expand_fills_q3": ("tpch_q3_sf1", "expand_fills")}
     for entry in report["kernels"]:
-        entry["kernel_ms"] = kernel_ms[entry["name"]]
+        name = entry["name"]
+        entry["kernel_ms"] = kernel_ms[name]
+        if name in by_case:
+            case, key = by_case[name]
+            entry["mesh_launches"] = [
+                r[key] for r in gloo["launches_by_case"][case]]
+        elif "_span" in name:
+            entry["mesh_launches"] = [0] * len(gloo["launches_per_rank"])
+        else:
+            entry["mesh_launches"] = [
+                r[name] for r in gloo["launches_per_rank"]]
+    # Rank 0's rows at the mesh path's own shapes (MeshAudit): each form's
+    # largest call of phase 10, its launches there, and every rank's.
+    sources = {"flat_compact": ("compact.cu", "compact.py:199"),
+               "flat_segscan": ("segscan.cu", "segscan.py:143"),
+               "flat_segscan_one_segment": ("segscan.cu", "segscan.py:143"),
+               "onehot_groupby_sums": ("dense_agg.cu", "matmul_agg.py:134"),
+               "expand_fills": ("expand.cu", "expand.py:177")}
+    for form, a in gloo["audit"].items():
+        src, line = sources[form]
+        entry = kernel_entry(
+            f"{form}_mesh", src, f"harkdb_tpu/kernels/{line}", a["launches"],
+            None, a["max_abs_err"], a["ms"], a["host_ms"], a["plain_ms"],
+            a["bytes"], a["library_ms"])
+        entry.update(
+            kernel_ms=a["kernel_ms"], calls=a["calls"], case=a["case"],
+            shape=a["shape"], mesh_rank=0, mesh_launches=[
+                r[form] - (r["flat_segscan_one_segment"]
+                           if form == "flat_segscan" else 0)
+                for r in gloo["launches_per_rank"]])
+        report["kernels"].append(entry)
     report["launches"]["csv_main_query"] = csv_cli.pop("launches")
     report["launches"]["cli_profile"] = csv_cli.pop("cli_launches")
     log(json.dumps(report))

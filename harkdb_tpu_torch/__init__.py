@@ -17,8 +17,10 @@ CTEs and views, subqueries, set operations, window functions, strings,
 (``python -m harkdb_tpu_torch``). Four kernels are written by hand for the
 card: stream compaction (``kernels/compact.py``), segmented scan
 (``kernels/segscan.py``), segment expansion (``kernels/expand.py``) and the
-dense-key GROUP BY (``kernels/matmul_agg.py``). The one thing that raises is
-distributed execution, ``Context(mesh=...)``, until ``parallel/`` is ported.
+dense-key GROUP BY (``kernels/matmul_agg.py``). ``Context(mesh=...)`` runs
+queries over several ranks of a ``torch.distributed`` process group
+(``parallel/``); window functions, derived tables and set operations are not
+distributed yet and raise on a mesh of more than one rank.
 """
 
 from harkdb_tpu_torch.config import EngineConfig

@@ -4,10 +4,19 @@
         "select col1, max(col3) from game_1 group by col1"
 
 The arguments of ``python -m harkdb_tpu``: --table NAME=PATH (repeatable),
---mesh (distributed execution: not ported yet, raises), --explain,
---profile DIR, --cpu (run on the CPU; without it the query runs on the
-CUDA device). The default output is a table printed through pandas;
---explain and --profile (which prints the raw matrix) need no pandas.
+--mesh, --explain, --profile DIR, --cpu (run on the CPU; without it the
+query runs on the CUDA device). The default output is a table printed
+through pandas; --explain and --profile (which prints the raw matrix) need
+no pandas.
+
+--mesh runs the query distributed, one process per rank, under torchrun:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m harkdb_tpu_torch \
+        --mesh --table t=data.csv "select ..."
+
+Rank r runs on ``cuda:{LOCAL_RANK}`` (over NCCL when every rank has a card
+of its own, else gloo), or on the CPU over gloo with --cpu. Rank 0 prints;
+the other ranks run silently. Without a launcher --mesh raises.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--table", action="append", default=[],
                     metavar="NAME=PATH", help="register a table (repeatable)")
     ap.add_argument("--mesh", action="store_true",
-                    help="row-shard tables over all visible devices")
+                    help="run distributed, one rank per process (torchrun)")
     ap.add_argument("--explain", action="store_true")
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--cpu", action="store_true",
@@ -32,8 +41,27 @@ def main(argv=None) -> int:
 
     from harkdb_tpu_torch import Context
 
-    ctx = Context(device="cpu" if args.cpu else "cuda",
-                  mesh=True if args.mesh else None)
+    if not args.mesh:
+        return _run(ap, args, Context(device="cpu" if args.cpu else "cuda"),
+                    True)
+    import torch.distributed as dist
+
+    from harkdb_tpu_torch.parallel.multihost import init_from_env
+
+    mesh = init_from_env(cpu=args.cpu)
+    try:
+        return _run(ap, args, Context(mesh=mesh), mesh.rank == 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(ap, args, ctx, speak: bool) -> int:
+    """Load the tables into ``ctx`` and run the query; only a rank that
+    ``speak``s prints."""
+    def say(*a, **kw):
+        if speak:
+            print(*a, **kw)
+
     for spec in args.table:
         name, _, path = spec.partition("=")
         if not path:
@@ -41,25 +69,23 @@ def main(argv=None) -> int:
         ctx.create_table(name, path)
 
     if args.explain:
-        print(ctx.explain(args.sql))
+        say(ctx.explain(args.sql))
         return 0
     if args.profile:
         out = ctx.profile(args.sql, args.profile)
-        print(f"(trace written to {args.profile})", file=sys.stderr)
-        print(out)
+        say(f"(trace written to {args.profile})", file=sys.stderr)
+        say(out)
         return 0
     if importlib.util.find_spec("pandas") is None:
-        print("harkdb_tpu_torch: printing a result table needs pandas, "
-              "which is not installed; --explain and --profile DIR (which "
-              "prints the raw matrix) run without it", file=sys.stderr)
+        say("harkdb_tpu_torch: printing a result table needs pandas, "
+            "which is not installed; --explain and --profile DIR (which "
+            "prints the raw matrix) run without it", file=sys.stderr)
         return 1
     df = ctx.sql_df(args.sql)
-    print(df.to_string(index=False))
+    say(df.to_string(index=False))
     m = ctx.last_metrics
-    print(
-        f"({m.rows_out} rows, plan {m.plan_ms:.1f} ms, "
-        f"exec {m.execute_ms:.1f} ms)", file=sys.stderr,
-    )
+    say(f"({m.rows_out} rows, plan {m.plan_ms:.1f} ms, "
+        f"exec {m.execute_ms:.1f} ms)", file=sys.stderr)
     return 0
 
 

@@ -11,6 +11,8 @@ Counterpart of ``harkdb_tpu.api`` on one device chosen explicitly:
   * ``profile`` → ``sql``'s matrix, with a ``torch.profiler`` trace
 
 Plans are cached on the Context keyed by (sql text, table signature).
+Under a mesh (``Context(mesh=...)``) every rank runs the same calls and
+queries run through ``parallel/executor.py``.
 """
 
 from __future__ import annotations
@@ -30,17 +32,26 @@ from harkdb_tpu_torch.columnar.table import Table
 
 class Context:
     def __init__(self, config: EngineConfig = DEFAULT_CONFIG,
-                 device="cuda", mesh=None):
+                 device=None, mesh=None):
         """``device``: where tables live and queries run — ``"cuda"``
         (the default; raises when no CUDA device is available) or
         ``"cpu"``. CUDA tensors go through the hand-written kernels, CPU
-        tensors through their plain PyTorch versions."""
+        tensors through their plain PyTorch versions.
+
+        ``mesh``: an :class:`~harkdb_tpu_torch.parallel.mesh.EngineMesh`
+        (``parallel.make_engine_mesh``), one per rank of a process group.
+        Every rank then makes the same calls with the same tables: each
+        keeps its chunk of every table on ``mesh.device`` (the default
+        ``device``), queries run distributed, and every rank returns the
+        whole result. A mesh of one rank runs the single-device path."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh (distributed execution) is not supported by the torch "
-                "port yet"
-            )
-        device = torch.device(device)
+            d = torch.device(mesh.device if device is None else device)
+            if d.type != mesh.device.type or d.index not in (
+                    None, mesh.device.index):
+                raise ValueError(f"device {device} differs from the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Context(device='cuda') needs a CUDA device and none is "
@@ -50,22 +61,36 @@ class Context:
             raise ValueError(f"unsupported device {device}")
         self.config = config
         self.device = device
+        self.mesh = mesh
         self.tables: Dict[str, Table] = {}
         self.views: Dict[str, str] = {}
         self._plan_cache: Dict[tuple, object] = {}
+        self._shard_cache: Dict[tuple, object] = {}
         self.last_metrics = None
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
 
     # -- tables (reference surface) -------------------------------------------
     def create_table(self, table_name: str, source, col_names=None) -> None:
+        # Under a mesh of several ranks the Table keeps host copies only
+        # (its tensors on the CPU); each rank's chunk goes to mesh.device
+        # when a query first reads it (parallel/executor.py's shard cache).
         self.tables[table_name] = Table(
             table_name, source, self.config, col_names=col_names,
-            device=self.device,
+            device="cpu" if self.distributed else self.device,
         )
-        self._plan_cache.clear()
+        self._forget(table_name)
 
     def drop_table(self, table_name: str) -> None:
         del self.tables[table_name]
+        self._forget(table_name)
+
+    def _forget(self, table_name: str) -> None:
         self._plan_cache.clear()
+        self._shard_cache = {k: v for k, v in self._shard_cache.items()
+                             if k[0] != table_name}
 
     # -- views (engine extension: persistent CTEs) -----------------------------
     def create_view(self, name: str, sql_statement: str) -> None:
@@ -113,15 +138,21 @@ class Context:
         with StageTimer() as t:
             plan = self._plan(sql_statement)
         m.plan_ms = t.ms
+        m.distributed = self.distributed
         with StageTimer() as t:
-            try:
-                out = plan.execute(self.tables)
-            except (RuntimeError, OSError):
-                # Queries are pure over resident tables — one re-execution
-                # covers a transient device failure (SURVEY §5).
-                if not self.config.retry_on_failure:
-                    raise
-                out = plan.execute(self.tables)
+            if self.distributed:
+                # No retry: one rank retrying alone would enter collectives
+                # the others have left.
+                out = self._execute_distributed(plan)
+            else:
+                try:
+                    out = plan.execute(self.tables)
+                except (RuntimeError, OSError):
+                    # Queries are pure over resident tables — one
+                    # re-execution covers a transient device failure.
+                    if not self.config.retry_on_failure:
+                        raise
+                    out = plan.execute(self.tables)
         m.execute_ms = t.ms
         if self.config.collect_metrics:
             m.rows_out = int(out.n_valid)
@@ -129,6 +160,17 @@ class Context:
         self._last_plan = plan          # sql_df reads output_dicts from here
         m.log()
         return out, plan.output_names
+
+    def _execute_distributed(self, plan) -> ColumnBatch:
+        from harkdb_tpu_torch.parallel.executor import (
+            DistExecutor, not_distributed,
+        )
+        from harkdb_tpu_torch.plan.union_plan import UnionPlan
+
+        if isinstance(plan, UnionPlan):
+            raise not_distributed("set operations", self.mesh)
+        return DistExecutor(plan, self.mesh, self.config,
+                            shard_cache=self._shard_cache).execute(self.tables)
 
     # -- persistence (SURVEY §5 checkpoint slot) ------------------------------
     def save(self, directory: str) -> None:

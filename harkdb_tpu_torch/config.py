@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 
 def _env(name: str, cast, default):
@@ -43,6 +44,25 @@ class EngineConfig:
     # this capacity so small queries skip the sync.
     shrink_rows_min: int = 1 << 22
 
+    # ---- distribution -------------------------------------------------------
+    # Name of the mesh's one axis, kept from the JAX package (where it names
+    # the ``jax.sharding.Mesh`` axis). A process group has no named axes:
+    # make_engine_mesh refuses any other value rather than ignore it.
+    mesh_axis: str = "shards"
+    # Number of ranks the mesh must have; None = the process group's size.
+    num_shards: Optional[int] = None
+    # Skew handling: a probe key whose local count exceeds `skew_threshold`
+    # x (local rows / D) is nominated hot and salted over all ranks
+    # (parallel/skew.py).
+    skew_threshold: float = 0.25
+    # Salted repartitioning for distributed joins (parallel/skew.py).
+    skew_salted_join: bool = True
+    # Run the post-aggregation / post-join tail (HAVING / ORDER BY /
+    # OFFSET / LIMIT / projection / DISTINCT) sharded, with a range-
+    # partitioned distributed sort, instead of gathering the whole result
+    # on every rank before run_tail (parallel/executor.py).
+    dist_tail: bool = True
+
     # ---- reference-parity compat ---------------------------------------------
     # The reference's groupby orders output keys by u32 bit pattern (radix
     # sort, groupby.fut:21-22), which puts NEGATIVE keys after positive ones.
@@ -70,6 +90,7 @@ class EngineConfig:
             int_dtype=_env("INT_DTYPE", str, base.int_dtype),
             float_dtype=_env("FLOAT_DTYPE", str, base.float_dtype),
             row_align=_env("ROW_ALIGN", int, base.row_align),
+            num_shards=_env("NUM_SHARDS", int, base.num_shards),
             log_level=_env("LOG_LEVEL", str, base.log_level),
         )
 

@@ -1,0 +1,451 @@
+"""Distributed query execution over a mesh of ranks.
+
+Counterpart of ``harkdb_tpu.parallel.executor`` (without ``_dist_windows``).
+Every rank runs :meth:`DistExecutor.execute` on the same plan: its chunk of
+each table is sharded once and cached, joins and GROUP BY run with
+exchanges (``dist_ops``), and the tail (HAVING / ORDER BY / OFFSET / LIMIT
+/ projection / DISTINCT) runs sharded (``config.dist_tail``) or on the
+gathered result through the plan's own ``run_tail``. Every rank returns
+the whole result (the JAX package's multi-process delivery: an
+all_gather).
+
+Ordering parity with the single-device path:
+
+  * WHERE-only queries: rank blocks are contiguous original row ranges and
+    local compaction is stable, so rank order is the original row order;
+  * GROUP BY: ranks hold disjoint key sets; one range-partitioned sort
+    (or one sort of the gathered groups) restores ascending key order;
+  * JOIN: hidden per-table row-id columns ride the exchanges; the result
+    is sorted by (join keys, newest first, then row ids in binding order),
+    which reproduces the single-device sorted, stable order.
+
+Not distributed yet, raising ``NotImplementedError`` on a mesh of more
+than one rank: window functions, derived tables / CTEs / views, and set
+operations (the latter at ``api.Context``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from harkdb_tpu_torch.columnar.batch import ColumnBatch
+from harkdb_tpu_torch.columnar.table import Table
+from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
+from harkdb_tpu_torch.kernels.matmul_agg import MAX_KEY_SPAN
+from harkdb_tpu_torch.ops.groupby import u32_order_key
+from harkdb_tpu_torch.ops.sort import sort_batch
+from harkdb_tpu_torch.parallel.dist_ops import (
+    dist_filter, dist_groupby, dist_head, dist_join, dist_map, dist_orderby,
+)
+from harkdb_tpu_torch.parallel.sharded import ShardedBatch, shard_batch
+from harkdb_tpu_torch.plan.aggregates import apply_post_computes
+from harkdb_tpu_torch.plan.derived import DerivedSource
+from harkdb_tpu_torch.plan.expr import eval_expr
+from harkdb_tpu_torch.plan.nulls import valid_mask
+from harkdb_tpu_torch.plan.planner import (
+    QueryPlan, _null_extreme_sub, _pad_span,
+)
+
+
+def not_distributed(feature: str, mesh) -> NotImplementedError:
+    """The error a feature the port does not distribute yet raises."""
+    return NotImplementedError(
+        f"{feature} are not yet distributed in harkdb_tpu_torch: they raise "
+        f"on a mesh of {mesh.size} ranks; run them with mesh=None or on a "
+        f"mesh of one rank"
+    )
+
+
+class DistExecutor:
+    def __init__(self, plan: QueryPlan, mesh,
+                 config: EngineConfig = DEFAULT_CONFIG, shard_cache=None):
+        self.plan = plan
+        self.mesh = mesh
+        self.config = config
+        # (table name, binding, remap token) → this rank's resident block.
+        # Owned by the Context, so tables are sharded once, not per query.
+        self._shard_cache = shard_cache if shard_cache is not None else {}
+
+    # -- table sharding -------------------------------------------------------
+    def _shard_table(self, tables: Dict[str, Table],
+                     binding_idx: int) -> ShardedBatch:
+        b, tname, cols = self.plan.bindings[binding_idx]
+        if isinstance(self.plan._source(tables, tname), DerivedSource):
+            raise not_distributed("derived tables, CTEs and views", self.mesh)
+        # Merged-dictionary code remaps (string-key joins / cross-table
+        # string comparisons) apply on the host before sharding; the cache
+        # key carries the remap fingerprint.
+        remaps = self.plan.load_remaps.get(b, {})
+        token = tuple(sorted(
+            (i, hashlib.md5(lut.tobytes()).hexdigest())
+            for i, lut in remaps.items()
+        )) if remaps else None
+        key = (tname, b, token)
+        cached = self._shard_cache.get(key)
+        if cached is not None:
+            return cached
+        t = tables[tname]
+        host = {}
+        for c in cols:
+            internal = f"{b}.{c}"
+            a = t.host_columns[c]
+            lut = remaps.get(internal)
+            host[internal] = lut[a] if lut is not None else a
+        host[f"#rid.{b}"] = np.arange(t.n_rows, dtype=np.int32)
+        sb = shard_batch(host, t.n_rows, self.mesh, self.config)
+        self._shard_cache[key] = sb
+        return sb
+
+    # -- execution ------------------------------------------------------------
+    def _pushdown(self, sb: ShardedBatch, binding: str) -> ShardedBatch:
+        expr = self.plan.pushdown.get(binding)
+        if expr is None:
+            return sb
+        return dist_filter(
+            sb, lambda cols, cap: eval_expr(expr, cols, cap, self.config))
+
+    def _run_subplan(self, tables, plan) -> ColumnBatch:
+        """A subquery's plan, run over the same mesh (every rank gets the
+        whole result, which the outer plan substitutes as literals)."""
+        from harkdb_tpu_torch.plan.union_plan import UnionPlan
+
+        if isinstance(plan, UnionPlan):
+            raise not_distributed("set operations", self.mesh)
+        return DistExecutor(plan, self.mesh, self.config,
+                            self._shard_cache).execute(tables)
+
+    def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
+        """Run the planned query over the mesh; every rank returns the
+        whole result."""
+        plan = self.plan
+        if plan.window_specs:
+            raise not_distributed("window functions", self.mesh)
+        # Subqueries run first, over the mesh, and their results are read
+        # back and substituted before the pipeline reads the expressions.
+        plan._resolve_subqueries(
+            tables, execute=lambda p: self._run_subplan(tables, p))
+        work = self._pushdown(self._shard_table(tables, 0),
+                              plan.bindings[0][0])
+        # Order-restoration chain: per join, newest first, the specs that
+        # reproduce the single-device sorted-stable output order; rid_order
+        # is the per-binding row-id tie chain (the incoming table first for
+        # RIGHT joins — its rows are the preserved side of the swapped LEFT).
+        restore_specs: List[tuple] = []
+        rid_order: List[str] = [f"#rid.{plan.bindings[0][0]}"]
+        for step_idx, (rb, lks, rks, kind) in enumerate(plan.join_steps):
+            right = self._pushdown(self._shard_table(tables, 1 + step_idx), rb)
+            kflags = list(plan.join_key_flags[step_idx])
+            if kind == "right":
+                work = dist_join(
+                    right, work, rks, lks, self.mesh, self.config,
+                    kind="left", matched_out=f"#lmatched.{rb}",
+                    r_flag_names=kflags,
+                )
+                restore_specs = [("asc", k) for k in rks] + restore_specs
+                rid_order.insert(0, f"#rid.{rb}")
+                continue
+            work = dist_join(
+                work, right, list(lks), list(rks), self.mesh, self.config,
+                kind=kind, matched_out=plan.null_flags.get(rb),
+                l_matched_out=f"#lmatched.{rb}" if kind == "full" else None,
+                l_flag_names=kflags,
+            )
+            # a nullable join key orders its NULL rows after the valid rows
+            # of the tying key value (the concat sort's null code)
+            nf_entry = [("nullflags", tuple(kflags))] if kflags else []
+            if kind == "full":
+                # single-device FULL = the left-join part (by key), then the
+                # unmatched right rows in key order: the flag separates the
+                # blocks, the merged key sorts within them
+                restore_specs = (
+                    [("desc", f"#lmatched.{rb}")]
+                    + [("merge", f"#lmatched.{rb}", lk, rk)
+                       for lk, rk in zip(lks, rks)]
+                    + nf_entry + restore_specs
+                )
+            else:
+                restore_specs = ([("asc", k) for k in lks] + nf_entry
+                                 + restore_specs)
+            rid_order.append(f"#rid.{rb}")
+
+        def restore_entries(names) -> List:
+            """Per-spec key builders over the columns present."""
+            names = set(names)
+            out = []
+            for spec in restore_specs:
+                if spec[0] == "merge":
+                    _t, fl, ln, rn = spec
+                    if {fl, ln, rn} <= names:
+                        out.append(lambda cols, fl=fl, ln=ln, rn=rn:
+                                   torch.where(cols[fl] != 0, cols[ln],
+                                               cols[rn]))
+                elif spec[0] == "nullflags":
+                    fls = list(spec[1])
+                    if set(fls) <= names:
+                        out.append(lambda cols, fls=fls: 1 - valid_mask(
+                            fls, cols).to(torch.int32))
+                elif spec[1] in names:
+                    if spec[0] == "desc":
+                        out.append(lambda cols, k=spec[1]: -cols[k])
+                    else:
+                        out.append(lambda cols, k=spec[1]: cols[k])
+            for r in rid_order:
+                if r in names:
+                    out.append(lambda cols, k=r: cols[k])
+            return out
+
+        self._restore_entries = restore_entries
+        joined = bool(plan.join_steps)
+
+        if plan.where_residual is not None:
+            expr = plan.where_residual
+            work = dist_filter(
+                work, lambda cols, cap: eval_expr(expr, cols, cap,
+                                                  self.config))
+
+        if plan.grouped:
+            work = self._groupby(work)
+            if self.config.dist_tail:
+                return self._dist_tail(work, grouped=True)
+            gathered = work.to_batch_device(self.mesh)
+            # Disjoint key sets per rank → one global sort restores the
+            # ascending-key output contract (u32 bit order under the
+            # reference-compat flag).
+            keys = list(plan.group_exec_keys) or ["#const"]
+            if self.config.compat_u32_key_order:
+                gathered = sort_batch(
+                    gathered, [], key_arrays=[
+                        u32_order_key(gathered.column(k)) for k in keys])
+            else:
+                gathered = sort_batch(gathered, keys)
+        else:
+            if self.config.dist_tail:
+                return self._dist_tail(work, joined, grouped=False)
+            gathered = work.to_batch_device(self.mesh)
+            if joined:
+                ka = [f(gathered.columns)
+                      for f in restore_entries(gathered.columns)]
+                gathered = sort_batch(gathered, [], [False] * len(ka),
+                                      key_arrays=ka)
+        return plan.run_tail(gathered)
+
+    def _groupby(self, work: ShardedBatch) -> ShardedBatch:
+        """GROUP BY over the ranks, with the implicit group's empty-input
+        row (count 0, NULL aggregates) fabricated on rank 0."""
+        plan, cfg = self.plan, self.config
+        # exec keys include the hidden matched flag of any nullable group
+        # key (NULL as its own group, as on one device)
+        keys = list(plan.group_exec_keys) or ["#const"]
+        need_ones = any(src == "#ones" for src, _, _ in plan.agg_specs)
+        need_const = not plan.group_keys
+
+        def pre_fn(cols, cap):
+            extra = {}
+            for name, ge in plan.group_key_exprs:
+                extra[name] = eval_expr(ge, cols, cap, cfg)
+            for name in keys:
+                dfe = plan.derived_flag_cols.get(name)
+                if dfe is not None:
+                    extra[name] = eval_expr(dfe, cols, cap, cfg).to(
+                        torch.int32)
+            for internal, e in plan.agg_arg_cols:
+                extra[internal] = eval_expr(e, cols, cap, cfg)
+            dev = next(iter(cols.values())).device
+            if need_ones:
+                extra["#ones"] = torch.ones(cap, dtype=torch.int32,
+                                            device=dev)
+            if need_const:
+                extra["#const"] = torch.zeros(cap, dtype=torch.int32,
+                                              device=dev)
+            return extra
+
+        # The dense-key path distributed: the planner's gate (one small-span
+        # int key, sum / count only) runs kernel C in every rank's local
+        # pre-aggregate. The span is proven from the tables' statistics
+        # (no join) or measured by one all-reduced min / max probe over the
+        # live rows, cached on the plan.
+        fast = None
+        if plan.fast_agg is not None and not plan.join_steps:
+            _key, key_min, span_p = plan.fast_agg
+            fast = (key_min, span_p)
+        elif plan.fast_candidate is not None:
+            fast = self._probe_fast_dist(work)
+        plan.last_fast_span = fast[1] if fast is not None else None
+
+        work = dist_groupby(work, keys, list(plan.agg_specs), self.mesh,
+                            pre_fn, fast=fast)
+        if plan.group_keys:
+            return work
+        # SQL: an ungrouped aggregate over EMPTY input is one row (count 0,
+        # sums 0), not zero rows — rank 0 fabricates it when the global
+        # group count is zero (min/max padding is op-neutral, so slot 0
+        # zeroes explicitly); #grp_has is the implicit group's validity.
+        total = self.mesh.all_reduce(work.count.reshape(1), "sum")[0]
+        mk = (total == 0) & (self.mesh.rank == 0)
+        cols = {}
+        for name, cc in work.columns.items():
+            cc = cc.clone()
+            cc[0] = torch.where(mk, torch.zeros_like(cc[0]), cc[0])
+            cols[name] = cc
+        cols["#grp_has"] = (total > 0).to(torch.int32).expand(
+            work.local_capacity).clone()
+        return ShardedBatch(cols, torch.where(mk, 1, work.count).to(
+            torch.int32))
+
+    def _probe_fast_dist(self, work: ShardedBatch):
+        """The distributed form of ``QueryPlan._resolve_fast``'s probe: the
+        group key's (min, max, any) over every rank's live rows, in one
+        all_reduce, read back once and cached on the plan."""
+        plan, cfg = self.plan, self.config
+        cached = getattr(plan, "_probed_fast_dist", None)
+        if cached is not None:
+            return cached if cached != () else None
+        k = work.columns[plan.fast_candidate]
+        live = torch.arange(work.local_capacity, dtype=torch.int32,
+                            device=k.device) < work.count
+        info = torch.iinfo(k.dtype)
+        kmin = torch.where(live, k, info.max).min().to(torch.int64)
+        kmax = torch.where(live, k, info.min).max().to(torch.int64)
+        neg_min, kmax, nonempty = self.mesh.all_reduce(torch.stack(
+            [-kmin, kmax, live.any().to(torch.int64)]), "max").tolist()
+        fast = None
+        if nonempty:
+            kmin = -neg_min
+            if not (cfg.compat_u32_key_order and kmin < 0):
+                span = kmax - kmin + 1
+                if span <= MAX_KEY_SPAN:
+                    fast = (kmin, _pad_span(span))
+        plan._probed_fast_dist = fast if fast is not None else ()
+        return fast
+
+    def _dist_tail(self, work: ShardedBatch, joined: bool = False,
+                   grouped: bool = False) -> ColumnBatch:
+        """Sharded post-pipeline tail: HAVING / ORDER BY / OFFSET / LIMIT /
+        projection run on every rank's block, so no rank holds the whole row
+        or group set before delivery.
+
+        Ungrouped: ORDER BY is a range-partitioned sort (``dist_orderby``)
+        whose tie chain — order keys, then join keys and row ids, then the
+        pre-shuffle position — gives the single-device stable order.
+        Grouped: ranks hold disjoint key sets, so HAVING is a local filter,
+        avg / null-fix derivations are local maps, and the ascending-key
+        contract (or the user's ORDER BY, ties broken by the exec group
+        keys) is one ``dist_orderby``. OFFSET / LIMIT take each rank's slice
+        of the global window (``dist_head``). Delivery is an all_gather:
+        every rank returns the whole result. ``last_tail_capacities``
+        records (stage, this rank's capacity).
+        """
+        plan, cfg, mesh = self.plan, self.config, self.mesh
+        final_items = list(plan.final_items)
+        caps = [("in", work.local_capacity)]
+        post = list(plan.post_computes) if grouped else []
+
+        def aug(cols, cap):
+            """Post-aggregation derived columns (avg / variance / null
+            fixes) for HAVING / ORDER BY / projection expressions."""
+            if not post:
+                return cols
+            g = dict(cols)
+            apply_post_computes(g, post)
+            return g
+
+        if grouped and plan.having is not None:
+            hv = plan.having
+            work = dist_filter(
+                work, lambda cols, cap: eval_expr(hv, aug(cols, cap), cap,
+                                                  cfg))
+            caps.append(("having", work.local_capacity))
+
+        out_names = [f"#out{i}" for i in range(len(final_items))]
+        # Hidden NULL indicators per nullable output, as run_tail emits them
+        # on one device. A flag may be a post-compute output (sample
+        # variance validity), available only after aug.
+        post_outs = {o for o, _s in post}
+        nf_specs = [
+            (i, flags)
+            for i, flags in enumerate(plan.output_null_flags)
+            if flags and plan._flags_available(
+                flags, set(work.names) | post_outs)
+        ]
+        out_names = out_names + [f"#nullflag{i}" for i, _f in nf_specs]
+
+        def project(cols, cap):
+            g = aug(cols, cap)
+            out = {f"#out{i}": eval_expr(e, g, cap, cfg)
+                   for i, (e, _n) in enumerate(final_items)}
+            for i, flags in nf_specs:
+                out[f"#nullflag{i}"] = plan._valid_arr(flags, g, cap).to(
+                    torch.int32)
+            return out
+
+        if plan.distinct:
+            # DISTINCT = group-by over the whole output tuple: project on
+            # every rank, dedupe, exchange by the tuple's hash, dedupe. The
+            # single-device order is lexicographic by the tuple with ORDER
+            # BY applied stably on top: (order outputs, whole tuple) is the
+            # sort's key chain (tuples are unique, so the order is total).
+            work = dist_map(work, project)
+            work = dist_groupby(work, out_names, [], mesh)
+            descs = [d for _e, d in plan.order_items]
+            descs += [False] * len(out_names)
+
+            def dkeys_fn(cols, cap):
+                ks = []
+                for (j, (_e, d)), nu in zip(
+                    zip(plan.order_out_idx, plan.order_items),
+                    plan.order_nulls,
+                ):
+                    a = cols[f"#out{j}"]
+                    nf = cols.get(f"#nullflag{j}")
+                    if nf is not None:
+                        a = _null_extreme_sub(a, nf == 0, d, nu)
+                    ks.append(a)
+                return ks + [cols[k] for k in out_names]
+
+            work = dist_orderby(work, dkeys_fn, descs, mesh)
+            caps.append(("distinct", work.local_capacity))
+        else:
+            tie_names: List[str] = []
+            tie_fns: List = []
+            u32_ties = False
+            if grouped:
+                # ranks hold disjoint key sets in hash order; one range
+                # partition restores the global ascending-key contract, the
+                # exec keys breaking the user's ORDER BY's ties
+                tie_names = [k for k in plan.group_exec_keys
+                             if k in work.columns]
+                u32_ties = cfg.compat_u32_key_order
+            elif joined:
+                # the join restore chain (keys / outer-join flags / row
+                # ids) reproduces the single-device order
+                tie_fns = self._restore_entries(work.names)
+
+            order_exprs = list(plan.order_items)
+            if order_exprs or tie_names or tie_fns:
+                descs = [d for _e, d in order_exprs]
+                descs += [False] * (len(tie_names) + len(tie_fns))
+
+                def keys_fn(cols, cap):
+                    g = aug(cols, cap)
+                    ks = [plan._null_adjusted_key(e, d, nu, g, cap)
+                          for (e, d), nu in zip(order_exprs,
+                                                plan.order_nulls)]
+                    if u32_ties:
+                        ks += [u32_order_key(cols[k]) for k in tie_names]
+                    else:
+                        ks += [cols[k] for k in tie_names]
+                    return ks + [f(cols) for f in tie_fns]
+
+                work = dist_orderby(work, keys_fn, descs, mesh)
+                caps.append(("orderby", work.local_capacity))
+            work = dist_map(work, project)
+
+        if plan.offset or plan.limit is not None:
+            work = dist_head(work, plan.offset or 0, plan.limit, mesh)
+            caps.append(("head", work.local_capacity))
+        self.last_tail_capacities = caps
+        return work.to_batch_device(mesh)

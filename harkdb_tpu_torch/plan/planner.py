@@ -1368,15 +1368,17 @@ class QueryPlan(StringLowering, NullSemantics):
     # instead of an OR-chain; span cap bounds the LUT at 4 MB of bool.
     _IN_LUT_SPAN = 1 << 22
 
-    def _resolve_subqueries(self, tables):
-        """First-execution pass: run each subquery plan, then substitute
-        scalar results / IN value sets as literals and re-lower (string
-        values translate against the outer column's dictionary here)."""
+    def _resolve_subqueries(self, tables, execute=None):
+        """First-execution pass: run each subquery plan (through
+        ``execute(plan)`` when given: the distributed executor runs them
+        over its mesh), then substitute scalar results / IN value sets as
+        literals and re-lower (string values translate against the outer
+        column's dictionary here)."""
         if self._subs_resolved:
             return
         values: Dict[object, object] = {}      # SubQuery → scalar | np array
         for s, p in self._subplans.items():
-            b = p.execute(tables)
+            b = p.execute(tables) if execute is None else execute(p)
             n = int(b.n_valid)
             col = b.columns[b.names[0]][:n].cpu().numpy()
             # SQL NULL semantics for subquery results: NULL rows (hidden

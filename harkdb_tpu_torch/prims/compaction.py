@@ -1,7 +1,7 @@
 """Masked compaction of batches and column lists (kernel A's callers).
 
-Counterpart of ``harkdb_tpu.prims.compaction`` (``compact_batch``,
-``compact_arrays``). Both go through ``kernels.compact.flat_compact``,
+Counterpart of ``harkdb_tpu.prims.compaction`` (``compact_indices``,
+``compact_batch``, ``compact_arrays``). All go through ``kernels.compact.flat_compact``,
 which launches the CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors. The kernel moves 32-bit words, so columns of
 other types travel as words here: 1- and 2-byte types widen to int32,
@@ -10,7 +10,7 @@ other types travel as words here: 1- and 2-byte types widen to int32,
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +33,21 @@ def _to_words(col: torch.Tensor
         return ([pair[:, 0].contiguous(), pair[:, 1].contiguous()],
                 lambda ws: torch.stack(ws, 1).view(dt).view(-1))
     return [col.to(torch.int32)], lambda ws: ws[0].to(dt)
+
+
+def compact_indices(mask: torch.Tensor,
+                    n_valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Indices of set mask positions (below ``n_valid``), packed to the
+    front: kernel A over an iota column. Returns ``(indices, count)``;
+    entries past ``count`` equal the capacity (an out-of-bounds sentinel,
+    as in ``harkdb_tpu/prims/compaction.py:22``)."""
+    n = mask.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=mask.device)
+    if n_valid is None:
+        n_valid = torch.full((), n, dtype=torch.int32, device=mask.device)
+    out, count = flat_compact({"i": idx}, mask, n_valid)
+    return torch.where(idx < count, out["i"], n), count
 
 
 def compact_arrays(arrays: Sequence[torch.Tensor], mask: torch.Tensor,

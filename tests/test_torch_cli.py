@@ -6,8 +6,8 @@ print the same table on stdout (the JAX CLI on the CPU backend the test
 session pins; the port's with ``--cpu``) and a stderr line of the same
 shape; ``--explain`` prints the same plan; ``--profile DIR`` prints the
 raw matrix and leaves a trace file in DIR. Without pandas the default
-output stops with a message naming pandas, and ``--mesh`` raises the
-port's NotImplementedError until ``parallel/`` is ported.
+output stops with a message naming pandas, and ``--mesh`` without a
+launcher (torchrun) raises, naming it.
 """
 
 import json
@@ -86,6 +86,37 @@ def test_cli_without_pandas_names_it(monkeypatch, capsys):
     assert cli.main(["--cpu", *TABLE, "--explain", QUERIES[0]]) == 0
 
 
-def test_cli_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_cli_mesh_not_ported(monkeypatch):
+    """``--mesh`` runs under torchrun only: without a launcher's
+    environment it raises, naming torchrun."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["--cpu", "--mesh", *TABLE, QUERIES[0]])
+
+
+def test_cli_mesh_under_torchrun(capsys):
+    """``--mesh`` under torchrun on 2 CPU ranks (gloo): rank 0 prints the
+    table the single-device CLI prints; rank 1 prints nothing."""
+    import subprocess
+    import sys
+
+    out_p, _err = _run(cli.main, ["--cpu", *TABLE, QUERIES[0]], capsys)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(var, None)
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "127.0.0.1", "--master-port", port, "-m",
+         "harkdb_tpu_torch", "--cpu",
+         "--mesh", *TABLE, QUERIES[0]],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout == out_p

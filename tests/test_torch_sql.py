@@ -516,12 +516,19 @@ def test_save_load_round_trip(tmp_path, contexts):
 
 
 def test_import_leaves_jax_out(tmp_path):
-    """The package, a numeric CSV through the native loader, a query under
-    ``debug_checks`` and the CLI's ``--explain`` import neither jax, the
-    JAX package nor pandas."""
+    """The package, its distributed layer (``harkdb_tpu_torch.parallel``
+    and every module in it), a numeric CSV through the native loader, a
+    query under ``debug_checks`` and the CLI's ``--explain`` import neither
+    jax, the JAX package nor pandas."""
     csv = tmp_path / "n.csv"
     csv.write_text("k,v\n1,3\n2,4\n2,5\n")
-    code = ("import sys, harkdb_tpu_torch\n"
+    code = ("import pkgutil, importlib, sys, harkdb_tpu_torch\n"
+            "import harkdb_tpu_torch.parallel as par\n"
+            "for m in pkgutil.iter_modules(par.__path__):\n"
+            "    importlib.import_module('harkdb_tpu_torch.parallel.' + "
+            "m.name)\n"
+            "assert len([m for m in sys.modules if m.startswith("
+            "'harkdb_tpu_torch.parallel.')]) >= 7\n"
             "from harkdb_tpu_torch.__main__ import main\n"
             "c = harkdb_tpu_torch.Context(device='cpu')\n"
             "c.create_table('t', {'k': [1, 2, 2], 'v': [3, 4, 5]})\n"
@@ -546,10 +553,25 @@ def test_import_leaves_jax_out(tmp_path):
 
 
 def test_context_device_and_mesh():
+    """A window query on a mesh of 2 gloo ranks raises NotImplementedError
+    naming windows on every rank; a mesh needs an initialised process
+    group (the message names torchrun); the device is the Context's."""
     import torch
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        harkdb_tpu_torch.Context(device="cpu", mesh=object())
+    from harkdb_tpu_torch.parallel import make_engine_mesh
+    from torch_mesh_pool import MeshPool
+
+    pool = MeshPool(2)
+    try:
+        got = pool.run("run_sql", {"t": {"k": np.arange(9, dtype=np.int32)}},
+                       ["select k, rank() over (order by k) from t"])
+    finally:
+        pool.close()
+    for entries in got:
+        assert entries[0][:2] == ("err", "NotImplementedError")
+        assert "window functions" in entries[0][2]
+    with pytest.raises(RuntimeError, match="torchrun"):
+        harkdb_tpu_torch.Context(device="cpu", mesh=make_engine_mesh())
     c = harkdb_tpu_torch.Context(device="cpu")
     c.create_table("t", {"k": np.arange(4, dtype=np.int32)})
     assert c.tables["t"].columns["k"].device.type == "cpu"
