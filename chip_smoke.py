@@ -62,9 +62,16 @@ Phases, each printing its results on lines of its own:
      (``parallel/multihost.init_multihost``) and run in every rank, at full
      width, the main query on 2^24 rows, the star join, TPC-H Q3 at SF 1, a
      star join whose facts have 90% of their rows on one key (salted), a
-     ``median`` + ``count(distinct)`` GROUP BY and an ORDER BY ... LIMIT
-     under ``dist_tail`` True and False; every rank's whole result must
-     equal the numpy oracle and the single-device port's bit for bit, and
+     ``median`` + ``count(distinct)`` GROUP BY, an ORDER BY ... LIMIT
+     under ``dist_tail`` True and False, windows on 2^24 rows (the
+     partitioned window query, a global running window with lag on the
+     carry path, a global ROWS frame on the rank-0 route, a window over
+     grouped output), set operations (UNION ALL under ORDER BY and UNION
+     on the sharded tail, the INTERSECT on the gather path), the star
+     join as a CTE's body (kernel C inside it) and TPC-H Q5 (a CTE) and
+     Q13 (a derived table) at SF 1; every rank's whole result
+     must equal the numpy oracle and the single-device port's bit for
+     bit, each case must launch the kernels it needs on every rank, and
      kernels A, B, C and D must launch on every rank. Each query is timed
      warm (median of 5; 4 ranks share one card: not a scaling figure). With
      more than one card the same runs on NCCL, one rank per card; else one
@@ -1355,16 +1362,63 @@ MEDIAN_QUERY = ("select k % 64 as b, median(v) as md, count(distinct v) "
                 "as d from t group by k % 64 order by b")
 TOPK_QUERY = ("select k, v from t where v > 990 order by v desc, k "
               "limit 1000")
+GLOBAL_WINDOW_QUERY = (
+    "select k, v, row_number() over (order by v, k) as rn, "
+    "sum(v) over (order by v, k) as rs, "
+    "lag(v, 1) over (order by v, k) as pv from t where v > 500")
+FRAME_WINDOW_QUERY = (
+    "select k, v, sum(v) over (order by v, k rows between 3 preceding and "
+    "current row) as s3 from t where v > 990")
+GROUPED_WINDOW_QUERY = (
+    "select k % 64 as b, sum(v) as s, rank() over (order by sum(v) desc) "
+    "as rk from t group by k % 64")
+STAR_CTE_QUERY = ("with sj as (select g, sum(v) as s, count(*) as c from "
+                  "facts join dims on facts.k = dims.j where v > 0 group by "
+                  "g) select sj.g, sj.s, sj.c from sj order by sj.g")
+UNION_ALL_QUERY = ("select k, v from t where v > 990 union all "
+                   "select k, v from t where v < -990 order by v, k")
+UNION_QUERY = ("select k from t where v > 900 union "
+               "select k from t where v < -900")
 # Phase 10's cases per table set: (name, query, EngineConfig overrides).
 MESH_SETS = [
     ("bench", [("main_query", MAIN_QUERY, {}),
                ("median_countd", MEDIAN_QUERY, {}),
                ("orderby_limit", TOPK_QUERY, {}),
-               ("orderby_limit_gather", TOPK_QUERY, {"dist_tail": False})]),
-    ("star", [("star_join", STAR_QUERY, {})]),
+               ("orderby_limit_gather", TOPK_QUERY, {"dist_tail": False}),
+               ("window_partitioned", WINDOW_QUERY, {}),
+               ("window_global", GLOBAL_WINDOW_QUERY, {}),
+               ("window_frame_rank0", FRAME_WINDOW_QUERY, {}),
+               ("window_grouped", GROUPED_WINDOW_QUERY, {}),
+               ("union_all_sharded", UNION_ALL_QUERY, {}),
+               ("union_distinct", UNION_QUERY, {}),
+               ("intersect_gather", SETOP_QUERY, {})]),
+    ("star", [("star_join", STAR_QUERY, {}),
+              ("star_join_cte", STAR_CTE_QUERY, {})]),
     ("skew", [("skewed_join", STAR_QUERY, {})]),
-    ("tpch", [("tpch_q3_sf1", Q3_QUERY, {})]),
+    ("tpch", [("tpch_q3_sf1", Q3_QUERY, {}),
+              ("tpch_q5_cte_sf1", Q5_QUERY, {}),
+              ("tpch_q13_derived_sf1", Q13_QUERY, {})]),
 ]
+# The kernels a case must launch on every rank (at least once each): the
+# call sites of the distributed windows, set operations and derived
+# tables (kernel C inside a CTE: the star join's GROUP BY as its body;
+# Q5's outer GROUP BY sums a derived column, which has no host stats, so
+# the dense path stays off there, as in the JAX package). Every rank's blocks hold rows in these cases; the rank-0 route
+# of window_frame_rank0 leaves the other ranks without window rows.
+MESH_NEEDS = {
+    "window_partitioned": ("flat_compact", "flat_segscan",
+                           "flat_segscan_one_segment"),
+    "window_global": ("flat_compact", "flat_segscan_one_segment"),
+    "window_frame_rank0": ("flat_compact",),
+    "window_grouped": ("flat_compact",),
+    "union_all_sharded": ("flat_compact",),
+    "union_distinct": ("flat_compact",),
+    "intersect_gather": ("flat_compact",),
+    "star_join_cte": ("flat_compact", "expand_fills",
+                      "onehot_groupby_sums"),
+    "tpch_q5_cte_sf1": ("flat_compact", "expand_fills"),
+    "tpch_q13_derived_sf1": ("flat_compact", "expand_fills"),
+}
 
 
 def skew_data():
@@ -1414,16 +1468,86 @@ def topk_oracle(k, v) -> np.ndarray:
     return np.stack([ks[order], vs[order]], axis=1).astype(np.int32)
 
 
+def global_window_oracle(k, v) -> np.ndarray:
+    """GLOBAL_WINDOW_QUERY: rows of ``v > 500`` in table order with their
+    row number, running sum (peers, equal (v, k), share the sum at the
+    last of them; int32 wrap) and the previous row's v (0 for the first)
+    in the order (v, k, table position)."""
+    keep = v > 500
+    ks, vs = k[keep], v[keep]
+    n = ks.shape[0]
+    order = np.lexsort((ks, vs))
+    sk, sv = ks[order], vs[order]
+    t_start = np.r_[True, (sv[1:] != sv[:-1]) | (sk[1:] != sk[:-1])]
+    t_end = np.r_[np.flatnonzero(t_start)[1:], n] - 1
+    peer_last = t_end[np.cumsum(t_start) - 1]
+    rs = wrap32(np.cumsum(sv.astype(np.int64))[peer_last])
+    out = np.empty((n, 5), np.int32)
+    out[order] = np.stack([sk, sv, np.arange(1, n + 1), rs,
+                           np.r_[0, sv[:-1]]], axis=1)
+    return out
+
+
+def frame_window_oracle(k, v) -> np.ndarray:
+    """FRAME_WINDOW_QUERY: rows of ``v > 990`` in table order with the sum
+    of v over the row and the 3 before it in the order (v, k, table
+    position)."""
+    keep = v > 990
+    ks, vs = k[keep], v[keep]
+    order = np.lexsort((ks, vs))
+    sv = vs[order].astype(np.int64)
+    cum = np.r_[0, np.cumsum(sv)]
+    i = np.arange(sv.shape[0])
+    s3 = cum[i + 1] - cum[np.maximum(i - 3, 0)]
+    out = np.empty((ks.shape[0], 3), np.int32)
+    out[order] = np.stack([ks[order], vs[order], wrap32(s3)], axis=1)
+    return out
+
+
+def grouped_window_oracle(k, v) -> np.ndarray:
+    """GROUPED_WINDOW_QUERY: per k % 64 (ascending), sum(v) (int32 wrap)
+    and its rank, 1 + the groups with a larger sum."""
+    b = k % 64
+    s = wrap32(np.bincount(b, weights=v.astype(np.int64), minlength=64))
+    rk = 1 + (s[None, :] > s[:, None]).sum(1)
+    return np.stack([np.arange(64), s, rk], axis=1).astype(np.int32)
+
+
+def union_all_oracle(k, v) -> np.ndarray:
+    """UNION_ALL_QUERY: both arms' rows in table order, concatenated, then
+    stably sorted by (v, k)."""
+    a, b = v > 990, v < -990
+    ks, vs = np.r_[k[a], k[b]], np.r_[v[a], v[b]]
+    order = np.lexsort((ks, vs))
+    return np.stack([ks[order], vs[order]], axis=1).astype(np.int32)
+
+
+def union_oracle(k, v) -> np.ndarray:
+    """UNION_QUERY: the distinct keys of both arms, ascending (the order a
+    dedupe leaves)."""
+    return np.union1d(k[v > 900], k[v < -900])[:, None].astype(np.int32)
+
+
 def mesh_oracles() -> dict:
     k, v = table_data(N_MAIN)
     out = {"main_query": oracle(k, v), "median_countd": median_oracle(k, v),
-           "orderby_limit": topk_oracle(k, v)}
+           "orderby_limit": topk_oracle(k, v),
+           "window_partitioned": window_oracle(k, v),
+           "window_global": global_window_oracle(k, v),
+           "window_frame_rank0": frame_window_oracle(k, v),
+           "window_grouped": grouped_window_oracle(k, v),
+           "union_all_sharded": union_all_oracle(k, v),
+           "union_distinct": union_oracle(k, v),
+           "intersect_gather": setop_oracle(k, v)}
     out["orderby_limit_gather"] = out["orderby_limit"]
     facts, dims = star_data()
-    out["star_join"] = star_oracle(facts, dims)
+    out["star_join"] = out["star_join_cte"] = star_oracle(facts, dims)
     skew = skew_data()
     out["skewed_join"] = star_oracle(skew["facts"], skew["dims"])
-    out["tpch_q3_sf1"] = q3_oracle(q3_data())
+    tpch = q3_data()
+    out["tpch_q3_sf1"] = q3_oracle(tpch)
+    out["tpch_q5_cte_sf1"] = q5_oracle(tpch)
+    out["tpch_q13_derived_sf1"] = q13_oracle(tpch)
     return out
 
 
@@ -1731,6 +1855,11 @@ def _mesh_rank(rank, size, coordinator, backend, device, audit) -> dict:
 
     sys.path.insert(0, ROOT)
     import harkdb_tpu_torch as H
+    # every module of the mesh path loaded before the audit first replaces
+    # the wrappers wherever a module holds them
+    import harkdb_tpu_torch.parallel.executor  # noqa: F401
+    import harkdb_tpu_torch.plan.derived  # noqa: F401
+    import harkdb_tpu_torch.plan.union_plan  # noqa: F401
     from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
     from harkdb_tpu_torch.parallel.multihost import init_multihost
     from harkdb_tpu_torch.parallel.skew import detect_hot_keys
@@ -1765,6 +1894,11 @@ def _mesh_rank(rank, size, coordinator, backend, device, audit) -> dict:
                 finally:
                     if auditor is not None:
                         auditor.remove()
+                short = [k for k in MESH_NEEDS.get(name, ())
+                         if launches[k] == 0]
+                if short:
+                    raise AssertionError(f"{name}: rank {rank} never "
+                                         f"launched {short}: {launches}")
                 for k, n in launches.items():
                     out["launches"][k] += n
                 times = []
@@ -1777,7 +1911,8 @@ def _mesh_rank(rank, size, coordinator, backend, device, audit) -> dict:
                     times.append((time.perf_counter() - t0) * 1e3)
                 entry = {"digest": _digest(got), "launches": launches,
                          "ms": statistics.median(times), "all_ms": times,
-                         "last_fast_span": ctx._plan(query).last_fast_span,
+                         "last_fast_span": getattr(ctx._plan(query),
+                                                   "last_fast_span", None),
                          "profile": mesh_profile(torch, ctx, query,
                                                  rank == 0)}
                 if rank == 0:

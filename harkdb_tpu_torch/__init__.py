@@ -19,8 +19,7 @@ card: stream compaction (``kernels/compact.py``), segmented scan
 (``kernels/segscan.py``), segment expansion (``kernels/expand.py``) and the
 dense-key GROUP BY (``kernels/matmul_agg.py``). ``Context(mesh=...)`` runs
 queries over several ranks of a ``torch.distributed`` process group
-(``parallel/``); window functions, derived tables and set operations are not
-distributed yet and raise on a mesh of more than one rank.
+(``parallel/``), every feature above included.
 """
 
 from harkdb_tpu_torch.config import EngineConfig

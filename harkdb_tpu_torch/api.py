@@ -162,13 +162,13 @@ class Context:
         return out, plan.output_names
 
     def _execute_distributed(self, plan) -> ColumnBatch:
-        from harkdb_tpu_torch.parallel.executor import (
-            DistExecutor, not_distributed,
-        )
+        from harkdb_tpu_torch.parallel.executor import DistExecutor
         from harkdb_tpu_torch.plan.union_plan import UnionPlan
 
         if isinstance(plan, UnionPlan):
-            raise not_distributed("set operations", self.mesh)
+            # UnionPlan drives its own arms over the mesh
+            return plan.execute(self.tables, mesh=self.mesh,
+                                shard_cache=self._shard_cache)
         return DistExecutor(plan, self.mesh, self.config,
                             shard_cache=self._shard_cache).execute(self.tables)
 

@@ -1,8 +1,7 @@
-"""Distributed operators: filter / group-by / order-by / head / map / join
-over each rank's block.
+"""Distributed operators: filter / group-by / window / order-by / head / map
+/ join over each rank's block.
 
-Counterpart of ``harkdb_tpu.parallel.dist_ops`` (without ``dist_window``:
-windows under a mesh are not distributed in the port yet). Every function
+Counterpart of ``harkdb_tpu.parallel.dist_ops``. Every function
 runs on every rank, SPMD, on that rank's :class:`ShardedBatch`, built from
 the same single-device operators (``harkdb_tpu_torch.ops``): the
 distributed layer composes, it does not reimplement.
@@ -15,7 +14,8 @@ collective follows from it (a block's own capacity).
 
 Collectives per operator: filter / map none; head one all_gather of the
 counts; group-by one exchange (``shuffle.exchange``) after the local
-pre-aggregate; order-by one sample all_gather and one exchange; join two
+pre-aggregate; window one exchange; order-by one sample all_gather and
+one exchange; join two
 exchanges (both sides co-partitioned), with salting one more all_gather.
 """
 
@@ -180,6 +180,33 @@ def dist_groupby(
     keep = set(key_names) | {out for _, _, out in post_specs}
     return ShardedBatch({n: c for n, c in final.columns.items() if n in keep},
                         final.n_valid)
+
+
+def dist_window(
+    sb: ShardedBatch,
+    part_names: Sequence[str],
+    compute_fn: Callable[[ColumnBatch], ColumnBatch],
+    mesh,
+) -> ShardedBatch:
+    """Distributed window functions for one PARTITION BY shape.
+
+    Rows exchange on the partition keys' hash, so every partition lands
+    wholly on one rank; the single-device window computation
+    (``compute_fn``: ``plan/windows.compute_windows`` over this shape's
+    specs) then runs on each rank's block and is globally correct.
+    Window columns computed by an earlier shape ride the exchange as
+    payload, so several shapes chain as passes. Rows stay where the
+    exchange put them: the executor's tail restores the order (row id /
+    join key / ORDER BY sort). An empty PARTITION BY sends every live row
+    to rank 0 (the split-size exchange needs no retry to fit them)."""
+    if part_names:
+        dest = hash_keys(sb.columns, list(part_names), mesh.size)
+    else:
+        dest = torch.zeros(sb.local_capacity, dtype=torch.int32,
+                           device=sb.count.device)
+    shuf, shuf_n = repartition_with_dest(sb.columns, dest, sb.count, mesh)
+    out = compute_fn(ColumnBatch(shuf, shuf_n))
+    return ShardedBatch(out.columns, out.n_valid)
 
 
 def _route_order_view(key: Tensor, descending: bool) -> Tensor:

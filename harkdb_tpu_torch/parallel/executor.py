@@ -1,13 +1,16 @@
 """Distributed query execution over a mesh of ranks.
 
-Counterpart of ``harkdb_tpu.parallel.executor`` (without ``_dist_windows``).
-Every rank runs :meth:`DistExecutor.execute` on the same plan: its chunk of
-each table is sharded once and cached, joins and GROUP BY run with
-exchanges (``dist_ops``), and the tail (HAVING / ORDER BY / OFFSET / LIMIT
-/ projection / DISTINCT) runs sharded (``config.dist_tail``) or on the
-gathered result through the plan's own ``run_tail``. Every rank returns
-the whole result (the JAX package's multi-process delivery: an
-all_gather).
+Counterpart of ``harkdb_tpu.parallel.executor``. Every rank runs
+:meth:`DistExecutor.execute` on the same plan: its chunk of each table is
+sharded once and cached (a derived table's inner result once per plan,
+on its ``DerivedSource``), joins, windows and GROUP BY run with exchanges
+(``dist_ops``, ``global_window``), and the tail (HAVING / windows over
+grouped output / ORDER BY / OFFSET / LIMIT / projection / DISTINCT) runs
+sharded (``config.dist_tail``) or on the gathered result through the
+plan's own ``run_tail``. Every rank returns the whole result (the JAX
+package's multi-process delivery: an all_gather), or, with
+``deliver=False``, its block of the tail's projected result (the UNION
+tail composes arms from those).
 
 Ordering parity with the single-device path:
 
@@ -15,13 +18,10 @@ Ordering parity with the single-device path:
     local compaction is stable, so rank order is the original row order;
   * GROUP BY: ranks hold disjoint key sets; one range-partitioned sort
     (or one sort of the gathered groups) restores ascending key order;
-  * JOIN: hidden per-table row-id columns ride the exchanges; the result
-    is sorted by (join keys, newest first, then row ids in binding order),
-    which reproduces the single-device sorted, stable order.
-
-Not distributed yet, raising ``NotImplementedError`` on a mesh of more
-than one rank: window functions, derived tables / CTEs / views, and set
-operations (the latter at ``api.Context``).
+  * JOIN and windows: hidden per-table row-id columns ride the exchanges;
+    the result is sorted by (join keys, newest first, then row ids in
+    binding order), which reproduces the single-device sorted, stable
+    order.
 """
 
 from __future__ import annotations
@@ -40,6 +40,10 @@ from harkdb_tpu_torch.ops.groupby import u32_order_key
 from harkdb_tpu_torch.ops.sort import sort_batch
 from harkdb_tpu_torch.parallel.dist_ops import (
     dist_filter, dist_groupby, dist_head, dist_join, dist_map, dist_orderby,
+    dist_window,
+)
+from harkdb_tpu_torch.parallel.global_window import (
+    dist_global_window, supports_global,
 )
 from harkdb_tpu_torch.parallel.sharded import ShardedBatch, shard_batch
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
@@ -49,15 +53,7 @@ from harkdb_tpu_torch.plan.nulls import valid_mask
 from harkdb_tpu_torch.plan.planner import (
     QueryPlan, _null_extreme_sub, _pad_span,
 )
-
-
-def not_distributed(feature: str, mesh) -> NotImplementedError:
-    """The error a feature the port does not distribute yet raises."""
-    return NotImplementedError(
-        f"{feature} are not yet distributed in harkdb_tpu_torch: they raise "
-        f"on a mesh of {mesh.size} ranks; run them with mesh=None or on a "
-        f"mesh of one rank"
-    )
+from harkdb_tpu_torch.plan.windows import compute_windows
 
 
 class DistExecutor:
@@ -74,8 +70,14 @@ class DistExecutor:
     def _shard_table(self, tables: Dict[str, Table],
                      binding_idx: int) -> ShardedBatch:
         b, tname, cols = self.plan.bindings[binding_idx]
-        if isinstance(self.plan._source(tables, tname), DerivedSource):
-            raise not_distributed("derived tables, CTEs and views", self.mesh)
+        src = self.plan._source(tables, tname)
+        if isinstance(src, DerivedSource):
+            # The inner query runs over the mesh once and is sharded again,
+            # cached on its own source (the shard cache is keyed by table
+            # name, which an alias could collide with).
+            return src.sharded(tables, self.mesh, self.config,
+                               self._shard_cache, b,
+                               self.plan.load_remaps.get(b, {}))
         # Merged-dictionary code remaps (string-key joins / cross-table
         # string comparisons) apply on the host before sharding; the cache
         # key carries the remap fingerprint.
@@ -114,16 +116,19 @@ class DistExecutor:
         from harkdb_tpu_torch.plan.union_plan import UnionPlan
 
         if isinstance(plan, UnionPlan):
-            raise not_distributed("set operations", self.mesh)
+            return plan.execute(tables, mesh=self.mesh,
+                                shard_cache=self._shard_cache)
         return DistExecutor(plan, self.mesh, self.config,
                             self._shard_cache).execute(tables)
 
-    def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
+    def execute(self, tables: Dict[str, Table], deliver: bool = True):
         """Run the planned query over the mesh; every rank returns the
-        whole result."""
+        whole result. ``deliver=False`` returns this rank's block of the
+        tail's projected result (``#out`` / ``#nullflag`` columns, a
+        :class:`ShardedBatch`) for the UNION tail to compose; the
+        ``dist_tail=False`` path delivers all the same."""
         plan = self.plan
-        if plan.window_specs:
-            raise not_distributed("window functions", self.mesh)
+        self._deliver = deliver
         # Subqueries run first, over the mesh, and their results are read
         # back and substituted before the pipeline reads the expressions.
         plan._resolve_subqueries(
@@ -207,6 +212,9 @@ class DistExecutor:
                 work, lambda cols, cap: eval_expr(expr, cols, cap,
                                                   self.config))
 
+        if plan.window_specs and not plan.grouped:
+            work = self._dist_windows(work)
+
         if plan.grouped:
             work = self._groupby(work)
             if self.config.dist_tail:
@@ -226,12 +234,52 @@ class DistExecutor:
             if self.config.dist_tail:
                 return self._dist_tail(work, joined, grouped=False)
             gathered = work.to_batch_device(self.mesh)
-            if joined:
+            # window exchanges move rows off their ranks, so the gathered
+            # result re-sorts by row id even without joins
+            if joined or plan.window_specs:
                 ka = [f(gathered.columns)
                       for f in restore_entries(gathered.columns)]
                 gathered = sort_batch(gathered, [], [False] * len(ka),
                                       key_arrays=ka)
         return plan.run_tail(gathered)
+
+    def _dist_windows(self, work: ShardedBatch,
+                      tie_names: List[str] = None) -> ShardedBatch:
+        """One exchange pass per distinct PARTITION BY: each partition
+        lands wholly on one rank, the single-device window computation
+        runs there, and window columns already computed ride later passes
+        as payload (``dist_window``). Global windows (empty PARTITION BY)
+        take the carry path (``global_window``; lag / lead through an
+        edge-row halo); explicit ROWS frames and wide lag / lead offsets
+        take the rank-0 route. ``tie_names`` replaces the row-id tie chain
+        (grouped queries pass the exec group keys: their rows are
+        groups)."""
+        plan = self.plan
+        by_parts: Dict[tuple, list] = {}
+        for spec in plan.window_specs:
+            by_parts.setdefault(spec[3], []).append(spec)
+        for parts, specs in by_parts.items():
+            if not parts:
+                by_shape: Dict[tuple, list] = {}
+                for s in specs:
+                    by_shape.setdefault((s[4], s[5]), []).append(s)
+                rest = []
+                for shp_specs in by_shape.values():
+                    if supports_global(shp_specs):
+                        work = dist_global_window(work, shp_specs, self.mesh,
+                                                  self.config,
+                                                  tie_names=tie_names)
+                    else:
+                        rest.extend(shp_specs)
+                if not rest:
+                    continue
+                specs = rest
+            # each rank's local order is irrelevant: the tail re-sorts
+            work = dist_window(
+                work, parts,
+                lambda b, _s=specs: compute_windows(plan, b, _s)[0],
+                self.mesh)
+        return work
 
     def _groupby(self, work: ShardedBatch) -> ShardedBatch:
         """GROUP BY over the ranks, with the implicit group's empty-input
@@ -360,6 +408,20 @@ class DistExecutor:
                                                   cfg))
             caps.append(("having", work.local_capacity))
 
+        if grouped and plan.window_specs:
+            # Windows over the grouped output (after HAVING, the standard
+            # SQL order). Their arguments may read avg / null-fix derived
+            # columns: those are materialised once, then the windows run
+            # over the sharded groups, ties broken by the exec group keys
+            # (unique per row), as on one device.
+            if post:
+                work = dist_map(work, aug)
+                post.clear()                   # aug becomes a no-op
+            work = self._dist_windows(
+                work, tie_names=[k for k in plan.group_exec_keys
+                                 if k in work.columns])
+            caps.append(("windows", work.local_capacity))
+
         out_names = [f"#out{i}" for i in range(len(final_items))]
         # Hidden NULL indicators per nullable output, as run_tail emits them
         # on one device. A flag may be a post-compute output (sample
@@ -419,9 +481,10 @@ class DistExecutor:
                 tie_names = [k for k in plan.group_exec_keys
                              if k in work.columns]
                 u32_ties = cfg.compat_u32_key_order
-            elif joined:
+            elif joined or plan.window_specs:
                 # the join restore chain (keys / outer-join flags / row
-                # ids) reproduces the single-device order
+                # ids) reproduces the single-device order; window
+                # exchanges moved rows off their ranks
                 tie_fns = self._restore_entries(work.names)
 
             order_exprs = list(plan.order_items)
@@ -448,4 +511,6 @@ class DistExecutor:
             work = dist_head(work, plan.offset or 0, plan.limit, mesh)
             caps.append(("head", work.local_capacity))
         self.last_tail_capacities = caps
+        if not self._deliver:
+            return work
         return work.to_batch_device(mesh)

@@ -1859,7 +1859,8 @@ class QueryPlan(StringLowering, NullSemantics):
         # rows in the same order.)
         presorted = False
         if self.window_specs and not self.grouped:
-            batch, presorted = compute_windows(self, batch)
+            batch, presorted = compute_windows(self, batch,
+                                               allow_skip_restore=True)
         return self.run_tail(batch, filter_mask=where_mask,
                              order_presorted=presorted)
 
@@ -1898,7 +1899,8 @@ class QueryPlan(StringLowering, NullSemantics):
             if filter_mask is not None:
                 batch = compact_batch(batch, filter_mask)
                 filter_mask = None
-            batch, order_presorted = compute_windows(self, batch)
+            batch, order_presorted = compute_windows(
+                self, batch, allow_skip_restore=True)
 
         # Materialize select outputs (unique internal slots, duplicates OK).
         out_cols = {}

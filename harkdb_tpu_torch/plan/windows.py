@@ -97,15 +97,20 @@ def restore_order(origpos: torch.Tensor,
     return out
 
 
-def compute_windows(plan, batch: ColumnBatch):
-    """Compute window outputs for ``plan.window_specs`` over ``batch``;
-    returns ``(batch + one column per spec, presorted)``.
+def compute_windows(plan, batch: ColumnBatch,
+                    specs: Sequence[Tuple] = None,
+                    allow_skip_restore: bool = False):
+    """Compute window outputs for ``plan.window_specs`` (or the given
+    subset) over ``batch``; returns ``(batch + one column per spec,
+    presorted)``.
 
-    When the plan detected that the query's final ORDER BY exactly matches
-    one shape's (PARTITION BY, ORDER BY) sort (``plan.window_skip_shape``),
-    that shape is processed LAST, every batch column rides the sort chain,
-    and BOTH the restore step and the caller's ORDER BY sort are skipped
-    (``presorted=True``)."""
+    ``allow_skip_restore``: when the plan detected that the query's final
+    ORDER BY exactly matches one shape's (PARTITION BY, ORDER BY) sort
+    (``plan.window_skip_shape``), that shape is processed LAST, every
+    batch column rides the sort chain, and BOTH the restore step and the
+    caller's ORDER BY sort are skipped (``presorted=True``). Distributed
+    callers pass False: the executor's distributed sort restores the
+    order of each rank's rows."""
     from harkdb_tpu_torch.ops.groupby import _neutral_py, _scan
     from harkdb_tpu_torch.ops.sort import (
         _descending_transform, lexsort_permutation,
@@ -120,12 +125,13 @@ def compute_windows(plan, batch: ColumnBatch):
     count = live.sum(dtype=torch.int32)
 
     groups: Dict[tuple, List[tuple]] = {}
-    for spec in plan.window_specs:
+    for spec in (plan.window_specs if specs is None else specs):
         _out, _f, _arg, parts, oexprs, descs, *_rest = spec
         groups.setdefault((parts, oexprs, descs), []).append(spec)
 
     skip_shape = (plan.window_skip_shape
-                  if plan.window_skip_shape in groups else None)
+                  if allow_skip_restore and plan.window_skip_shape in groups
+                  else None)
     if skip_shape is not None:
         # the matching shape must run last (its sort is the final order)
         reordered = {k: v for k, v in groups.items() if k != skip_shape}

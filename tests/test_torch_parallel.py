@@ -17,7 +17,7 @@ test_parity.py (``TestGroupKeyOrder``). Beside it, the modules that hold
 kernels against JAX's: ``hash_to_bucket``, ``segmented_iota``,
 ``replicated_iota``, ``compact_indices`` and ``shard_batch``'s blocks; the
 mesh's own contract (errors, a mesh of one rank, a failing or hanging
-rank, the features that still raise).
+rank); a window, a derived table and a set operation on the mesh.
 """
 
 import multiprocessing
@@ -398,21 +398,16 @@ def test_subqueries_run_over_the_mesh(pool, jmesh):
     ])
 
 
-def test_features_not_distributed_raise(pool):
-    """Windows, derived tables and set operations raise on a mesh of more
-    than one rank, naming the feature, on every rank."""
+def test_features_not_distributed_raise(pool, jmesh):
+    """A window function, a derived table and a set operation run on a
+    mesh of four ranks, each rank equal to JAX's mesh (the test's name is
+    from when the port raised NotImplementedError for them)."""
     t = _pair_tables()
-    got = pool.run("run_sql", t, [
+    check(pool, jmesh, t, [
         "select k, row_number() over (partition by k order by v) from t",
         "select d.k from (select k from t) d",
         "select k from t union select j from r",
     ])
-    for entries in got:
-        kinds = [(e[0], e[1]) for e in entries]
-        assert kinds == [("err", "NotImplementedError")] * 3, kinds
-        assert "window functions" in entries[0][2]
-        assert "derived tables" in entries[1][2]
-        assert "set operations" in entries[2][2]
 
 
 # -- the mesh's own contract --------------------------------------------------

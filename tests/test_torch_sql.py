@@ -553,23 +553,23 @@ def test_import_leaves_jax_out(tmp_path):
 
 
 def test_context_device_and_mesh():
-    """A window query on a mesh of 2 gloo ranks raises NotImplementedError
-    naming windows on every rank; a mesh needs an initialised process
-    group (the message names torchrun); the device is the Context's."""
+    """A window query on a mesh of 2 gloo ranks equals JAX's 2-device mesh
+    on every rank; a mesh needs an initialised process group (the message
+    names torchrun); the device is the Context's."""
     import torch
 
+    from harkdb_tpu.parallel import make_engine_mesh as jax_mesh
     from harkdb_tpu_torch.parallel import make_engine_mesh
-    from torch_mesh_pool import MeshPool
+    from torch_mesh_pool import MeshPool, assert_same, jax_sql
 
+    tables = {"t": {"k": np.arange(9, dtype=np.int32) % 4}}
+    queries = ["select k, rank() over (order by k) from t"]
     pool = MeshPool(2)
     try:
-        got = pool.run("run_sql", {"t": {"k": np.arange(9, dtype=np.int32)}},
-                       ["select k, rank() over (order by k) from t"])
+        got = pool.run("run_sql", tables, queries)
     finally:
         pool.close()
-    for entries in got:
-        assert entries[0][:2] == ("err", "NotImplementedError")
-        assert "window functions" in entries[0][2]
+    assert_same(jax_sql(jax_mesh(2), tables, queries), got, queries)
     with pytest.raises(RuntimeError, match="torchrun"):
         harkdb_tpu_torch.Context(device="cpu", mesh=make_engine_mesh())
     c = harkdb_tpu_torch.Context(device="cpu")

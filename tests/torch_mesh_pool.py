@@ -155,18 +155,23 @@ def _np(t) -> np.ndarray:
 
 
 def run_sql(mesh, tables, queries, cfg=None, frames=False,
-            capacities=False):
+            capacities=False, views=None):
     """Each query through ``Context(mesh=mesh)``: ``("ok", result,
     last_fast_span, probed span)`` or ``("err", type name, message)``.
+    ``views`` (name → SELECT) are created after the tables.
     ``frames`` gives ``sql_df``'s frame instead of ``sql``'s matrix;
-    ``capacities`` adds ``DistExecutor.last_tail_capacities``."""
+    ``capacities`` adds ``last_tail_capacities`` (the ``DistExecutor``'s,
+    or the ``UnionPlan``'s sharded tail's)."""
     from harkdb_tpu_torch import Context, EngineConfig
     from harkdb_tpu_torch.parallel.executor import DistExecutor
+    from harkdb_tpu_torch.plan.union_plan import UnionPlan
 
     config = EngineConfig(**(cfg or {}))
     ctx = Context(config, mesh=mesh)
     for name, src in tables.items():
         ctx.create_table(name, src)
+    for name, body in (views or {}).items():
+        ctx.create_view(name, body)
     out = []
     for q in queries:
         try:
@@ -175,12 +180,17 @@ def run_sql(mesh, tables, queries, cfg=None, frames=False,
             out.append(("err", type(e).__name__, str(e)))
             continue
         plan = ctx._plan(q)
-        entry = ["ok", res, plan.last_fast_span,
+        entry = ["ok", res, getattr(plan, "last_fast_span", None),
                  getattr(plan, "_probed_fast_dist", None)]
         if capacities:
-            ex = DistExecutor(plan, mesh, config,
-                              shard_cache=ctx._shard_cache)
-            ex.execute(ctx.tables)
+            if isinstance(plan, UnionPlan):
+                ex = plan
+                plan.execute(ctx.tables, mesh=mesh,
+                             shard_cache=ctx._shard_cache)
+            else:
+                ex = DistExecutor(plan, mesh, config,
+                                  shard_cache=ctx._shard_cache)
+                ex.execute(ctx.tables)
             entry.append(ex.last_tail_capacities)
         out.append(tuple(entry))
     return out
@@ -218,6 +228,57 @@ def orderby_head(mesh, v, offset=None, limit=None):
     else:
         out = dist_head(sb, offset, limit, mesh)
     return _np(out.columns["v"])[:int(out.count)], out.local_capacity
+
+
+def _window_input(mesh, tables, sql, table):
+    """``sql``'s single-device plan and this rank's block of ``table``
+    (its columns as the plan names them, plus the row ids)."""
+    from harkdb_tpu_torch import Context
+    from harkdb_tpu_torch.parallel.sharded import shard_batch
+
+    ctx = Context(device="cpu")
+    for name, src in tables.items():
+        ctx.create_table(name, src)
+    plan = ctx._plan(sql)
+    t = ctx.tables[table]
+    host = {f"{table}.{c}": t.host_columns[c] for c in t.get_schema()}
+    host[f"#rid.{table}"] = np.arange(t.n_rows, dtype=np.int32)
+    return plan, shard_batch(host, t.n_rows, mesh)
+
+
+def window_blocks(mesh, tables, sql, table, form):
+    """The window specs of ``sql`` over ``table``'s sharded rows through
+    ``dist_window`` (``form="partitioned"``: one PARTITION BY shape) or
+    ``dist_global_window`` (``"global"``): this rank's live rows and
+    local capacity."""
+    from harkdb_tpu_torch.parallel.dist_ops import dist_window
+    from harkdb_tpu_torch.parallel.global_window import dist_global_window
+    from harkdb_tpu_torch.plan.windows import compute_windows
+
+    plan, sb = _window_input(mesh, tables, sql, table)
+    specs = plan.window_specs
+    if form == "partitioned":
+        out = dist_window(sb, specs[0][3],
+                          lambda b: compute_windows(plan, b, specs)[0], mesh)
+    else:
+        out = dist_global_window(sb, specs, mesh)
+    n = int(out.count)
+    return {c: _np(v)[:n] for c, v in out.columns.items()}, out.local_capacity
+
+
+def union_tail(mesh, tables, sql):
+    """``UnionPlan._execute_sharded`` of ``sql`` over ``Context(mesh=...)``
+    tables: the delivered live rows and ``last_tail_capacities``."""
+    from harkdb_tpu_torch import Context
+
+    ctx = Context(mesh=mesh)
+    for name, src in tables.items():
+        ctx.create_table(name, src)
+    plan = ctx._plan(sql)
+    b = plan._execute_sharded(ctx.tables, mesh, ctx._shard_cache)
+    n = int(b.n_valid)
+    return ({c: _np(v)[:n] for c, v in b.columns.items()},
+            plan.last_tail_capacities)
 
 
 def hot_keys(mesh, k, live=None, threshold=0.25):
@@ -276,7 +337,7 @@ def size_one_mesh(mesh, tables, query):
 
 # -- the JAX side and the comparison (in the test process only) ---------------
 
-def jax_sql(mesh, tables, queries, cfg=None, frames=False):
+def jax_sql(mesh, tables, queries, cfg=None, frames=False, views=None):
     """The same queries through ``harkdb_tpu.Context(mesh=mesh)`` (or the
     single-device path for ``mesh=None``), in :func:`run_sql`'s form."""
     import harkdb_tpu
@@ -285,6 +346,8 @@ def jax_sql(mesh, tables, queries, cfg=None, frames=False):
                              mesh=mesh)
     for name, src in tables.items():
         ctx.create_table(name, src)
+    for name, body in (views or {}).items():
+        ctx.create_view(name, body)
     out = []
     for q in queries:
         try:
@@ -293,7 +356,7 @@ def jax_sql(mesh, tables, queries, cfg=None, frames=False):
             out.append(("err", type(e).__name__, str(e)))
             continue
         plan = ctx._plan(q)
-        out.append(("ok", res, plan.last_fast_span,
+        out.append(("ok", res, getattr(plan, "last_fast_span", None),
                     getattr(plan, "_probed_fast_dist", None)))
     return out
 
