@@ -76,7 +76,20 @@ Phases, each printing its results on lines of its own:
      warm (median of 5; 4 ranks share one card: not a scaling figure). With
      more than one card the same runs on NCCL, one rank per card; else one
      line says it was skipped. The exchange's stable partition is timed
-     as four launches of kernel A (the port's form) against a sort.
+     as four launches of kernel A (the port's form) against a sort;
+ 11. the public primitives (``harkdb_tpu_torch.prims``) at 2^24 rows:
+     ``segmented_scan`` and ``segmented_reduce`` with add, max, min and
+     mul over int32 and float32 in seeded segments of 1-64 rows,
+     ``expand``, ``expand_reduce`` and ``expand_outer_reduce`` over 2^20
+     sizes (about 2^24 outputs) gathering from two planes, ``compact`` at
+     50% and 1%: each equal to the same call on the CPU (the plain
+     versions), each raising the counts of its kernels (A, B or D), no
+     plain version run on the card, each timed; then the top-k LIMIT path
+     on bench-2^24's table and on a float32 table with NaN of both signs,
+     ±0.0 and ±inf: five queries at their LIMIT (one top-k selection
+     each, counted by a spy) and at 1025 (the sort, none), each against
+     a numpy oracle (and the JAX package's written-down rows for the NaN
+     table), timed warm (median of 5) and profiled (device-busy share).
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -1087,10 +1100,10 @@ def run_query_check(torch, H, counters, n, query, min_count):
     return ctx, launches
 
 
-def profile_query(torch, ctx, query, top=20) -> float:
+def profile_query(torch, ctx, query, top=20):
     """One warm run of ``query`` under torch.profiler: device time by
     kernel (the ``top`` longest), and the device's busy share of the wall
-    time. Returns the device-busy ms."""
+    time. Returns the device-busy ms and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
     ctx.sql(query)
@@ -1115,7 +1128,7 @@ def profile_query(torch, ctx, query, top=20) -> float:
     longest = sorted(by_name.items(), key=lambda x: -x[1][0])[:top]
     for name, (tot, cnt) in longest:
         log(f"  {tot / 1e3:9.3f} ms  x{cnt:<4d} {name[:100]}")
-    return busy_us / 1e3
+    return busy_us / 1e3, wall_us / 1e3
 
 
 def phase_nested(torch, H, counters):
@@ -2175,6 +2188,346 @@ def phase_mesh(torch, H) -> dict:
     return report
 
 
+# -- phase 11: the public primitives and the top-k LIMIT path --------------------
+
+# The plain versions phase 11 must never run on a CUDA tensor: (module of
+# the port, name).
+PLAIN_VERSIONS = (
+    ("kernels.segscan", "flat_segscan_reference"),
+    ("kernels.segscan", "doubling_segmented_scan"),
+    ("kernels.compact", "flat_compact_reference"),
+    ("kernels.expand", "expand_fills_reference"),
+    ("prims.segmented", "doubling_segmented_scan"),
+    ("prims.segmented", "_pair_scan"),
+)
+
+
+class PlainGuard:
+    """While installed, a plain version (``PLAIN_VERSIONS``) called with a
+    CUDA tensor raises; CPU tensors pass, so the CPU plain results can be
+    computed under it."""
+
+    def __init__(self, torch):
+        import importlib
+
+        self.torch = torch
+        self.saved = []
+        for mod_name, name in PLAIN_VERSIONS:
+            mod = importlib.import_module(f"harkdb_tpu_torch.{mod_name}")
+            self.saved.append((mod, name, getattr(mod, name)))
+
+    def _on_card(self, x) -> bool:
+        if isinstance(x, self.torch.Tensor):
+            return x.is_cuda
+        if isinstance(x, (list, tuple)):
+            return any(self._on_card(y) for y in x)
+        if isinstance(x, dict):
+            return any(self._on_card(y) for y in x.values())
+        return False
+
+    def __enter__(self):
+        for mod, name, fn in self.saved:
+            def guarded(*args, _fn=fn, _name=name, **kw):
+                if self._on_card(args) or self._on_card(kw):
+                    raise AssertionError(f"plain version {_name} ran on "
+                                         f"the card")
+                return _fn(*args, **kw)
+            setattr(mod, name, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def prims_data(n: int):
+    """Phase 11's inputs on the host: segment flags over ``n`` rows with
+    segment sizes in [1, 64] from a seed, one value column per (op, dtype),
+    expand's ``n / 16`` sizes in [0, 32) (about ``n`` outputs) and two
+    gather planes, compaction masks."""
+    rng = np.random.default_rng(11)
+    ends = np.cumsum(rng.integers(1, 65, n // 16 + 1))
+    flags = np.zeros(n, bool)
+    flags[0] = True
+    flags[ends[ends < n]] = True
+    vals = {}
+    for dtype in ("int32", "float32"):
+        for op in ("add", "max", "min", "mul"):
+            if dtype == "int32":
+                lo, hi = (-9, 9) if op == "mul" else (-2**31, 2**31 - 1)
+                x = rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32)
+            elif op == "mul":
+                x = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            else:
+                x = rng.standard_normal(n).astype(np.float32)
+                if op != "add":
+                    x[rng.random(n) < 0.01] = np.nan
+            vals[op, dtype] = x
+    m = n // 16
+    sizes = rng.integers(0, 32, m).astype(np.int32)
+    planes = (rng.integers(-2**20, 2**20, m).astype(np.int32),
+              rng.integers(-8, 8, m).astype(np.int32))
+    masks = {sel: rng.random(n) < sel for sel in (0.5, 0.01)}
+    return flags, vals, sizes, planes, masks
+
+
+def _same(torch, got, ref, op, bound=None) -> bool:
+    """Phase 3's rule: integers bit for bit; float max / min equal or NaN
+    in both; float add within FLOAT_ADD_RTOL of the |x| scan ``bound``,
+    float mul within FLOAT_ADD_RTOL of the value."""
+    got = got.cpu()
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, ref)
+    both_nan = torch.isnan(got) & torch.isnan(ref)
+    if op in ("max", "min"):
+        return bool(((got == ref) | both_nan).all())
+    scale = ref.abs() if op == "mul" else bound
+    diff = torch.where(got == ref, torch.zeros_like(got), (got - ref).abs())
+    return bool(((diff <= FLOAT_ADD_RTOL * scale + 1e-6) | both_nan).all())
+
+
+def phase_prims(torch, counters, dev, n: int = N_MAIN) -> dict:
+    """Phase 11 (a): ``harkdb_tpu_torch.prims`` at ``n`` rows on ``dev``.
+    Each call runs with the launch counts set to 0 just before and read
+    just after: it must launch the kernels it should (A, B or D) and equal
+    the same call on the CPU (the plain versions); no plain version may
+    run on the card (``PlainGuard``). Then each call is timed (CUDA
+    events, mean of 5 after 1 warm-up)."""
+    import harkdb_tpu_torch.prims as P
+
+    ops = {"add": torch.add, "max": torch.maximum, "min": torch.minimum,
+           "mul": torch.mul}
+    flags, vals, sizes, planes, masks = prims_data(n)
+    cpu = torch.device("cpu")
+    on = {d: {"flags": torch.from_numpy(flags).to(d),
+              "sizes": torch.from_numpy(sizes).to(d),
+              "planes": [torch.from_numpy(p).to(d) for p in planes]}
+          for d in (dev, cpu)}
+    cases = []           # (name, fn(device) -> tuple, need, op, bound)
+    n_valid = n - 12345
+    for (op, dtype), x in vals.items():
+        xs = {d: torch.from_numpy(x).to(d) for d in (dev, cpu)}
+        ne = scan_neutral(op, dtype)
+        scan_bound = reduce_bound = None
+        if (op, dtype) == ("add", "float32"):
+            absx = xs[cpu].abs()
+            scan_bound = P.segmented_scan(torch.add, 0, on[cpu]["flags"],
+                                          absx)
+            reduce_bound = P.segmented_reduce(torch.add, 0, on[cpu]["flags"],
+                                              absx, n_valid)[0]
+        cases.append((
+            f"segmented_scan {op} {dtype}",
+            lambda d, f=ops[op], ne=ne, xs=xs: (
+                P.segmented_scan(f, ne, on[d]["flags"], xs[d]),),
+            {"flat_segscan": 1}, op, scan_bound))
+        cases.append((
+            f"segmented_reduce {op} {dtype}",
+            lambda d, f=ops[op], ne=ne, xs=xs: P.segmented_reduce(
+                f, ne, on[d]["flags"], xs[d], n_valid),
+            {"flat_segscan": 1, "flat_compact": 1}, op, reduce_bound))
+    out_cap = int(sizes.sum())
+
+    def get_for(d):
+        a, b = on[d]["planes"]
+        return lambda s, loc: a[s] + b[s] * loc
+
+    expand_need = {"expand_fills": 1, "flat_segscan_one_segment": 1}
+    cases += [
+        ("expand", lambda d: P.expand(on[d]["sizes"], get_for(d), out_cap),
+         expand_need, "get", None),
+        ("expand_reduce add", lambda d: P.expand_reduce(
+            on[d]["sizes"], get_for(d), torch.add, 0, out_cap),
+         dict(expand_need, flat_segscan=2), "add", None),
+        ("expand_outer_reduce max", lambda d: P.expand_outer_reduce(
+            on[d]["sizes"], get_for(d), torch.maximum, 0, out_cap),
+         dict(expand_need, flat_segscan=2), "max", None),
+    ]
+    words = {d: torch.from_numpy(vals["max", "int32"]).to(d)
+             for d in (dev, cpu)}
+    for sel, m in masks.items():
+        ms = {d: torch.from_numpy(m).to(d) for d in (dev, cpu)}
+        cases.append((f"compact {sel:.0%}", lambda d, ms=ms: P.compact(
+            words[d], ms[d]), {"flat_compact": 1}, "get", None))
+
+    log(f"phase 11 prims: {n:,} rows, segments of 1-64 rows; expand: "
+        f"{sizes.shape[0]:,} sizes into {out_cap:,} slots")
+    report = {}
+    with PlainGuard(torch):
+        for name, fn, need, op, bound in cases:
+            reset_launches(counters)
+            got = fn(dev)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+            short = {k: (launches[k], v) for k, v in need.items()
+                     if launches[k] < v}
+            if short:
+                raise AssertionError(f"prims {name} skipped a kernel "
+                                     f"(launched, needed): {short}")
+            ref = fn(cpu)
+            for g, r in zip(got, ref):
+                if not _same(torch, g, r, op, bound):
+                    raise AssertionError(f"prims {name} differs from the "
+                                         f"CPU plain result")
+            ms = time_cuda(torch, lambda: fn(dev), iters=5, warmup=1)
+            report[name] = {"ms": ms, "launches": launches}
+            log(f"prims {name}: equal to the CPU plain result; launches "
+                f"{launches}; {ms:.4f} ms")
+    return report
+
+
+# Phase 11 (b): (name, query with {} for the LIMIT, its LIMIT). Each runs
+# at its LIMIT (top-k, at most 1024 with the OFFSET) and at 1025 (the
+# sort); a query over ``tf`` reads the NaN table.
+TOPK_CASES = [
+    ("v_desc", "select k, v from t order by v desc limit {}", 10),
+    ("v_asc", "select k, v from t order by v limit {}", 1024),
+    ("where_k_desc", "select k, v from t where v > 0 order by k desc "
+                     "limit {} offset 20", 100),
+    ("f_nan_asc", "select k, f from tf order by f limit {}", 10),
+    ("f_nan_desc", "select k, f from tf order by f desc limit {}", 10),
+]
+# The JAX package's rows (the k column) for the NaN table's two top-10
+# queries, from ``harkdb_tpu.Context`` on the CPU over the table's first
+# 4096 rows, which hold every planted NaN: both answers are NaNs alone,
+# so they are the answers over all 2^24 rows too.
+JAX_NAN_TOP10 = {
+    "f_nan_asc": [11, 642, 695, 924, 1623, 1828, 1902, 2178, 2448, 2451],
+    "f_nan_desc": [257, 462, 1269, 1680, 1883, 1888, 2332, 2457, 2691, 3221],
+}
+NAN_PREFIX = 4096
+
+
+def nan_table(n: int):
+    """The NaN table: k = 0..n-1, f = bench-2^24's v / 8 as float32 (many
+    ties), with 16 each of -NaN, +NaN, -inf, +inf, -0.0 and 0.0 planted at
+    seeded positions among the first ``NAN_PREFIX`` rows."""
+    _k, v = table_data(n)
+    f = (v / 8).astype(np.float32)
+    rng = np.random.default_rng(12)
+    pos = rng.choice(NAN_PREFIX, 96, replace=False)
+    nan = np.float32(np.nan)
+    specials = np.array([-nan, nan, -np.inf, np.inf, -0.0, 0.0],
+                        np.float32)
+    specials[0] = np.copysign(nan, np.float32(-1))
+    f[pos] = np.repeat(specials, 16)
+    return {"k": np.arange(n, dtype=np.int32), "f": f}
+
+
+def route_view(key: np.ndarray) -> np.ndarray:
+    """``_route_order_view``'s ascending order in numpy (int64): floats by
+    their IEEE bits, negative patterns mapped below the positive ones."""
+    if key.dtype == np.float32:
+        bits = key.view(np.int32).astype(np.int64)
+        return np.where(bits < 0, -(1 << 31) - bits, bits)
+    return key.astype(np.int64)
+
+
+def topk_oracle_rows(tables, query: str, limit: int) -> np.ndarray:
+    """A TOPK_CASES query in numpy. At a LIMIT + OFFSET of at most 1024,
+    a stable sort on the view (the reference's top-k order: ties by the
+    lowest index); above, a stable sort on the key itself (-0.0 equal to
+    0.0, every NaN last)."""
+    cols = tables["tf"] if " tf " in query else tables["t"]
+    key = "f" if " tf " in query else ("k" if "order by k" in query else "v")
+    desc = " desc " in query
+    offset = 20 if "offset 20" in query else 0
+    out = ["k", key] if key != "k" else ["k", "v"]
+    idx = np.arange(cols["k"].shape[0])
+    if "where v > 0" in query:
+        idx = idx[cols["v"] > 0]
+    kv = cols[key][idx]
+    if limit + offset <= 1024:
+        order_key = route_view(kv)
+    else:
+        order_key = kv.astype(np.float64 if kv.dtype == np.float32
+                              else np.int64)
+    order = np.argsort(-order_key if desc else order_key, kind="stable")
+    sel = idx[order][offset:offset + limit]
+    return np.stack([cols[c][sel] for c in out], axis=1)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint64) if a.dtype == np.float64 else a
+
+
+def phase_topk(torch, H, counters) -> dict:
+    """Phase 11 (b): TOPK_CASES on bench-2^24's table and the NaN table,
+    each at its LIMIT and at 1025, against its numpy oracle (and the JAX
+    package's written-down rows for the NaN table). A spy on the planner's
+    ``top_k_indices`` must count one selection for each query at most 1024
+    and none at 1025. Each query is then timed warm (median of 5) and
+    profiled (device-busy share)."""
+    from harkdb_tpu_torch.plan import planner
+
+    k_np, v_np = table_data(N_MAIN)
+    tables = {"t": {"k": k_np, "v": v_np}, "tf": nan_table(N_MAIN)}
+    ctx, load_s = load_context(torch, H, tables)
+    log(f"phase 11 tables t and tf ({N_MAIN:,} rows each): load "
+        f"{load_s:.2f} s")
+    calls = []
+    real = planner.top_k_indices
+
+    def spy(view, k):
+        calls.append(k)
+        return real(view, k)
+
+    report = {}
+    for name, query, limit in TOPK_CASES:
+        for lim in (limit, 1025):
+            q = query.format(lim)
+            expect = topk_oracle_rows(tables, q, lim)
+            calls.clear()
+            planner.top_k_indices = spy
+            try:
+                reset_launches(counters)
+                got = ctx.sql(q)
+                launches = read_launches(counters)
+            finally:
+                planner.top_k_indices = real
+            if got.shape != expect.shape or not np.array_equal(
+                    _bits(got), _bits(expect)):
+                raise AssertionError(f"top-k {name} at limit {lim} differs "
+                                     f"from its numpy oracle")
+            jax_rows = JAX_NAN_TOP10.get(name)
+            if lim == limit and jax_rows is not None and (
+                    got[:, 0].astype(np.int64).tolist() != jax_rows):
+                raise AssertionError(f"top-k {name} differs from the JAX "
+                                     f"package's rows")
+            want_calls = [lim + (20 if "offset 20" in q else 0)] \
+                if lim == limit else []
+            if calls != want_calls:
+                raise AssertionError(f"top-k {name} at limit {lim}: "
+                                     f"selections {calls}, expected "
+                                     f"{want_calls}")
+            ms, times = time_query(torch, ctx, q)
+            busy_ms, wall_ms = profile_query(torch, ctx, q, top=6)
+            report[f"{name}_{lim}"] = {
+                "ms": ms, "times": times, "busy_ms": busy_ms,
+                "busy_share": busy_ms / wall_ms, "selections": len(calls),
+                "launches": launches}
+            log(f"top-k {name} limit {lim}: {got.shape[0]:,} rows equal "
+                f"the oracle; selections {len(calls)}; launches "
+                f"{launches}; median {ms:.3f} ms of {times}; device busy "
+                f"{100 * busy_ms / wall_ms:.1f}%")
+        a, b = report[f"{name}_{limit}"], report[f"{name}_1025"]
+        log(f"top-k {name}: limit {limit} {a['ms']:.3f} ms "
+            f"({100 * a['busy_share']:.1f}% busy) vs limit 1025 (sort) "
+            f"{b['ms']:.3f} ms ({100 * b['busy_share']:.1f}% busy)")
+    del ctx
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_11(torch, H, counters) -> dict:
+    """Phase 11: the public primitives (a) and the top-k path (b)."""
+    out = {"prims": phase_prims(torch, counters, torch.device("cuda")),
+           "topk": phase_topk(torch, H, counters)}
+    torch.cuda.empty_cache()
+    log("phase 11: " + json.dumps(out))
+    return out
+
+
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
     """Bytes kernel A's work must move: the mask, each 32-byte sector (8
     rows) of each column that holds a kept row, and each kept word out."""
@@ -2381,6 +2734,9 @@ def main() -> int:
 
     # -- phase 10: the mesh, 4 gloo ranks sharing this card -----------------
     mesh = phase_mesh(torch, H)
+
+    # -- phase 11: the public primitives and the top-k LIMIT path -----------
+    phase_11(torch, H, counters)
 
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}

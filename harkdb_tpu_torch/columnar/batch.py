@@ -48,9 +48,22 @@ class ColumnBatch:
     def column(self, name: str) -> torch.Tensor:
         return self.columns[name]
 
+    def valid_mask(self) -> torch.Tensor:
+        """Boolean mask of shape (capacity,): True for live rows."""
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.n_valid
+
+    def with_columns(self, columns: Dict[str, torch.Tensor]) -> "ColumnBatch":
+        return ColumnBatch(columns, self.n_valid)
+
     def select(self, names) -> "ColumnBatch":
         """Projection: keep `names` in order."""
         return ColumnBatch({n: self.columns[n] for n in names}, self.n_valid)
+
+    def rename(self, mapping: Dict[str, str]) -> "ColumnBatch":
+        return ColumnBatch(
+            {mapping.get(n, n): c for n, c in self.columns.items()},
+            self.n_valid)
 
     # -- host conversion ------------------------------------------------------
     def to_numpy(self) -> Tuple[np.ndarray, List[str]]:

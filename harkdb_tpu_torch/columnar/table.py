@@ -123,6 +123,11 @@ class Table:
     def batch(self) -> ColumnBatch:
         return ColumnBatch(dict(self._columns), self._n_valid)
 
+    def nbytes(self) -> int:
+        """Bytes of the padded device columns."""
+        return sum(c.numel() * c.element_size()
+                   for c in self._columns.values())
+
     def __repr__(self):
         return (f"Table({self._table_name!r}, rows={self._n_rows}, "
                 f"cols={self._schema}, device={self._device})")

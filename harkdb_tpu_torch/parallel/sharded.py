@@ -103,6 +103,32 @@ class ShardedBatch:
     def names(self) -> List[str]:
         return list(self.columns.keys())
 
+    def n_shards(self, mesh) -> int:
+        """The number of blocks: one per rank of ``mesh``."""
+        return mesh.size
+
+    def global_capacity(self, mesh) -> int:
+        """The sum of every rank's local capacity (they may differ here)."""
+        cap = torch.tensor(self.local_capacity, dtype=torch.int64,
+                           device=self.count.device)
+        return int(mesh.all_reduce(cap))
+
+    def total_rows(self, mesh) -> torch.Tensor:
+        """The live rows over every rank: the all-reduced sum of the
+        counts, a 0-d int32 tensor on every rank."""
+        return mesh.all_reduce(self.count)
+
+    def to_batch(self, mesh) -> ColumnBatch:
+        """The whole relation on every rank, packed in rank order (= the
+        table's row order), padding rows zero: :meth:`to_batch_device` with
+        its padding cleared, as JAX's host-driven ``to_batch`` pads."""
+        batch = self.to_batch_device(mesh)
+        live = batch.valid_mask()
+        return batch.with_columns({
+            n: torch.where(live, c, torch.zeros((), dtype=c.dtype,
+                                                device=c.device))
+            for n, c in batch.columns.items()})
+
     def to_batch_device(self, mesh) -> ColumnBatch:
         """The whole relation on every rank, in rank order (= the table's
         row order): one all_gather of the counts, one of the columns (each

@@ -56,6 +56,7 @@ from harkdb_tpu_torch.kernels.matmul_agg import (
 from harkdb_tpu_torch.ops.groupby import groupby_batch
 from harkdb_tpu_torch.ops.join import compute_join_ranges, join_batches
 from harkdb_tpu_torch.ops.sort import lexsort_permutation, sort_batch
+from harkdb_tpu_torch.ops.topk import top_k_indices
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
@@ -1945,10 +1946,60 @@ class QueryPlan(StringLowering, NullSemantics):
                 ColumnBatch(dict(zip(names, sorted_all)), n_live), keep,
             )
 
-        # ORDER BY: one stable sort (the JAX package takes lax.top_k for a
-        # LIMIT of at most 1024; torch.topk promises no tie order, and the
-        # stable sort followed by the LIMIT gives the same rows).
-        if self.order_items and order_presorted:
+        # ORDER BY + small LIMIT: top-k selection over a monotone int32 view
+        # of the one key instead of the full payload sort
+        # (``harkdb_tpu/plan/planner.py:2053-2111``). The gate is the JAX
+        # package's plan decision and decides which rows come back: the
+        # view orders floats by their IEEE bits, so a NaN with its sign bit
+        # set ranks below -inf, where the sort puts every NaN last. Ties go
+        # to the lowest index, the stable sort's tie order. float64 keys
+        # take the sort (the float32 view would be lossy).
+        top_k_ok = (
+            self.order_items and len(self.order_items) == 1
+            and not order_presorted and not self.distinct
+            and self.limit is not None
+            and (self.limit + (self.offset or 0)) <= 1024
+        )
+        if top_k_ok:
+            (expr, d), nu = self.order_items[0], self.order_nulls[0]
+            key = self._null_adjusted_key(expr, d, nu, cols, batch.capacity)
+            top_k_ok = key.dtype == torch.float32 or (
+                not key.dtype.is_floating_point and key.dtype != torch.bool
+                and key.dtype.itemsize <= 4)
+        if self.order_items and top_k_ok:
+            # (imported here: dist_ops imports the plan package)
+            from harkdb_tpu_torch.parallel.dist_ops import _route_order_view
+
+            L = min(self.limit + (self.offset or 0), out.capacity)
+            # Dead rows (int32 min in the view) must never beat a live row
+            # whose view equals int32 min: ties go to the lowest index, so
+            # live rows must sit below dead ones — true of a packed batch,
+            # restored by compacting a pending WHERE mask (the key rides
+            # along as ``#tkkey``).
+            if filter_mask is not None:
+                tmp = compact_batch(
+                    ColumnBatch(dict(out.columns, **{"#tkkey": key}),
+                                out.n_valid),
+                    filter_mask,
+                )
+                key = tmp.columns["#tkkey"]
+                out = ColumnBatch(
+                    {n: c for n, c in tmp.columns.items() if n != "#tkkey"},
+                    tmp.n_valid,
+                )
+                filter_mask = None
+            # top-k takes the largest of the view: the view itself for
+            # DESC, the order-reversed view for ASC.
+            view = _route_order_view(key, not d)
+            live = torch.arange(out.capacity, dtype=torch.int32,
+                                device=dev) < out.n_valid
+            view = torch.where(live, view, torch.iinfo(torch.int32).min)
+            pick = top_k_indices(view, L)
+            out = ColumnBatch(
+                {n: c[pick] for n, c in out.columns.items()},
+                torch.clamp(out.n_valid, max=L),
+            )
+        elif self.order_items and order_presorted:
             if filter_mask is not None:
                 out = compact_batch(out, filter_mask)
                 filter_mask = None

@@ -1,11 +1,12 @@
 """Masked compaction of batches and column lists (kernel A's callers).
 
 Counterpart of ``harkdb_tpu.prims.compaction`` (``compact_indices``,
-``compact_batch``, ``compact_arrays``). All go through ``kernels.compact.flat_compact``,
-which launches the CUDA kernel for CUDA tensors and takes its plain
-version for CPU tensors. The kernel moves 32-bit words, so columns of
-other types travel as words here: 1- and 2-byte types widen to int32,
-8-byte types split into two words, and each is restored afterwards.
+``compact``, ``compact_batch``, ``compact_arrays``). All go through
+``kernels.compact.flat_compact``, which launches the CUDA kernel for CUDA
+tensors and takes its plain version for CPU tensors. The kernel moves
+32-bit words, so columns of other types travel as words here: 1- and
+2-byte types widen to int32, 8-byte types split into two words, and each
+is restored afterwards.
 """
 
 from __future__ import annotations
@@ -35,6 +36,16 @@ def _to_words(col: torch.Tensor
     return [col.to(torch.int32)], lambda ws: ws[0].to(dt)
 
 
+def _count(n_valid, n: int, device) -> torch.Tensor:
+    """``n_valid`` (None for all ``n`` rows, an int or a tensor) as a 0-d
+    int32 tensor on ``device``, filled there: a host value copied to the
+    card would wait for the card's queue."""
+    if isinstance(n_valid, torch.Tensor):
+        return n_valid.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), n if n_valid is None else n_valid,
+                      dtype=torch.int32, device=device)
+
+
 def compact_indices(mask: torch.Tensor,
                     n_valid: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -44,10 +55,23 @@ def compact_indices(mask: torch.Tensor,
     as in ``harkdb_tpu/prims/compaction.py:22``)."""
     n = mask.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=mask.device)
-    if n_valid is None:
-        n_valid = torch.full((), n, dtype=torch.int32, device=mask.device)
-    out, count = flat_compact({"i": idx}, mask, n_valid)
+    out, count = flat_compact({"i": idx}, mask,
+                              _count(n_valid, n, mask.device))
     return torch.where(idx < count, out["i"], n), count
+
+
+def compact(values: torch.Tensor, mask: torch.Tensor, n_valid=None,
+            fill=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact one array by ``mask`` (rows below ``n_valid``, all rows if
+    None): ``(packed, count)``, with ``fill`` past ``count``
+    (``harkdb_tpu/prims/compaction.py:41``)."""
+    n = values.shape[0]
+    dev = values.device
+    (packed,), count = compact_arrays([values], mask,
+                                      _count(n_valid, n, dev))
+    live = torch.arange(n, dtype=torch.int32, device=dev) < count
+    return torch.where(live, packed, torch.full((), fill, dtype=packed.dtype,
+                                                device=dev)), count
 
 
 def compact_arrays(arrays: Sequence[torch.Tensor], mask: torch.Tensor,

@@ -10,7 +10,9 @@ running max / min (kernel B over one segment) against ``torch.cummax`` /
 GROUP BY and the nested queries (windows, set operations, a CTE, EXISTS,
 IN and a correlated subquery) on the card against the CPU port; loads a
 numeric CSV onto the card through the native loader, finds kernels A and B
-in a ``Context.profile`` trace and runs queries under ``debug_checks``.
+in a ``Context.profile`` trace and runs queries under ``debug_checks``;
+runs the public primitives (``prims``) against their CPU plain results
+and the top-k LIMIT path against the CPU port.
 Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
@@ -286,3 +288,63 @@ def test_debug_checks_on_card(cuda):
               "select t.k, t.v, d.w from t join d on t.k = d.j "
               "where t.v < d.w order by t.k, t.v, d.w"):
         np.testing.assert_array_equal(checked.sql(q), plain.sql(q))
+
+
+def _counters():
+    from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
+
+    return {"flat_compact": (compact, "LAUNCHES"),
+            "flat_segscan": (segscan, "LAUNCHES"),
+            "flat_segscan_one_segment": (segscan, "ONE_SEGMENT_LAUNCHES"),
+            "onehot_groupby_sums": (matmul_agg, "LAUNCHES"),
+            "expand_fills": (expand, "LAUNCHES")}
+
+
+def test_prims_on_card_match_cpu(cuda):
+    """chip_smoke's phase 11 (a) at 2^16 rows: each primitive launches its
+    kernels (A, B or D), runs no plain version on the card and equals its
+    CPU plain result."""
+    import chip_smoke
+
+    chip_smoke.phase_prims(torch, _counters(), cuda, n=1 << 16)
+
+
+def test_prims_eight_byte_types_raise_on_card(cuda):
+    import harkdb_tpu_torch.prims as P
+
+    flags = torch.tensor([True, False, True], device=cuda)
+    vals = torch.arange(3, dtype=torch.int64, device=cuda)
+    for fn in (lambda: P.segmented_scan(torch.add, 0, flags, vals),
+               lambda: P.segmented_reduce(torch.maximum, 0, flags, vals)):
+        with pytest.raises(ValueError, match="at most 4 bytes"):
+            fn()
+
+
+def test_top_k_path_on_card_matches_cpu_port(cuda):
+    """The top-k queries of tests/test_torch_topk.py on the card against
+    the CPU port, with one selection each at a LIMIT of at most 1024."""
+    import harkdb_tpu_torch as H
+    from harkdb_tpu_torch.plan import planner
+    from torch_topk_cases import QUERIES, assert_same, tables
+
+    ctxs = {}
+    for dev in ("cpu", cuda):
+        ctxs[str(dev)] = H.Context(device=dev)
+        for name, src in tables().items():
+            ctxs[str(dev)].create_table(name, src)
+    real, calls = planner.top_k_indices, []
+
+    def spy(view, k):
+        calls.append(k)
+        return real(view, k)
+
+    planner.top_k_indices = spy
+    try:
+        for query, topk in QUERIES:
+            want = ctxs["cpu"].sql(query)
+            calls.clear()
+            got = ctxs[str(cuda)].sql(query)
+            assert_same(want, got, query)
+            assert len(calls) == int(topk), query
+    finally:
+        planner.top_k_indices = real

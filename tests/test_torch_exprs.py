@@ -178,8 +178,8 @@ CASES = [
           "median(v) as md from t"),
     ("t", "select f.k, median(qd.m) as md from f "
           "left join qd on f.k = qd.j group by f.k order by f.k"),
-    # TestTopKLimit (the JAX package's lax.top_k path; the port sorts
-    # fully and stably, then limits: the same rows)
+    # TestTopKLimit (the top-k path in both packages up to a LIMIT of
+    # 1024, the sort above it; tests/test_torch_topk.py holds the gate)
     ("k", "select k, v from t order by v limit 7"),
     ("k", "select k, v from t order by v desc limit 7"),
     ("k", "select k, f from t order by f limit 6"),

@@ -15,9 +15,10 @@ test_count_distinct.py, test_sql_ext.py (``TestGroupByExpr``,
 ``TestVarianceFamily``, ``TestMedianQuantile``, ``TestTopKLimit``) and
 test_parity.py (``TestGroupKeyOrder``). Beside it, the modules that hold
 kernels against JAX's: ``hash_to_bucket``, ``segmented_iota``,
-``replicated_iota``, ``compact_indices`` and ``shard_batch``'s blocks; the
-mesh's own contract (errors, a mesh of one rank, a failing or hanging
-rank); a window, a derived table and a set operation on the mesh.
+``replicated_iota``, ``compact_indices``, ``shard_batch``'s blocks and
+``ShardedBatch``'s accessors; the mesh's own contract (errors, a mesh of
+one rank, a failing or hanging rank); a window, a derived table and a set
+operation on the mesh.
 """
 
 import multiprocessing
@@ -172,6 +173,37 @@ def test_shard_batch_blocks_match_jax(pool, jmesh, n, row_align):
         for name in cols:
             np.testing.assert_array_equal(
                 block[name], np.asarray(sb.columns[name]).reshape(D, C)[i])
+
+
+@pytest.mark.parametrize("n", [700, 0])
+def test_sharded_batch_accessors_match_jax(pool, jmesh, n):
+    """``n_shards``, ``global_capacity``, ``total_rows`` and ``to_batch``
+    against JAX's ShardedBatch of the same table; after ``dist_orderby``,
+    ``total_rows`` is every row and ``to_batch`` the sorted column on
+    every rank (tests/test_dist_tail.py:138). ``to_batch`` pads with
+    zeros, as JAX's does."""
+    rng = np.random.default_rng(n + 1)
+    cols = {"v": rng.integers(0, 1 << 30, n).astype(np.int32),
+            "f": rng.standard_normal(n).astype(np.float32)}
+    sb = jax_shard_batch(cols, n, jmesh)
+    want = sb.to_batch()
+    ranks = pool.run("sharded_accessors", cols, n)
+    for name in ("sharded", "ordered"):
+        caps = sum(r[name][3] for r in ranks)
+        for r in ranks:
+            shards, gcap, total, _local, batch, count = r[name]
+            assert shards == sb.n_shards == D
+            assert total == count == int(sb.total_rows()) == n
+            assert gcap == caps
+            for c, col in batch.items():
+                assert not col[count:].any()
+                if name == "sharded":
+                    np.testing.assert_array_equal(
+                        col[:count], np.asarray(want.columns[c])[:n])
+                else:
+                    perm = np.argsort(cols["v"], kind="stable")
+                    np.testing.assert_array_equal(col[:count], cols[c][perm])
+    assert ranks[0]["sharded"][1] == sb.global_capacity
 
 
 def test_repartition_preserves_multiset_and_colocates(pool):

@@ -205,6 +205,28 @@ def shard_block(mesh, host_cols, n_rows, cfg=None):
     return {n: _np(c) for n, c in sb.columns.items()}, int(sb.count)
 
 
+def sharded_accessors(mesh, host_cols, n_rows):
+    """``ShardedBatch``'s accessors on this rank, for ``shard_batch``'s
+    block and for ``dist_orderby``'s output over the first column (as
+    tests/test_dist_tail.py reads them): ``n_shards``,
+    ``global_capacity``, ``total_rows``, this rank's local capacity, and
+    ``to_batch``'s whole columns (padding included) and count."""
+    from harkdb_tpu_torch.parallel.dist_ops import dist_orderby
+    from harkdb_tpu_torch.parallel.sharded import shard_batch
+
+    sb = shard_batch(host_cols, n_rows, mesh)
+    first = next(iter(host_cols))
+    out = {}
+    for name, b in (("sharded", sb), ("ordered", dist_orderby(
+            sb, lambda cols, cap: [cols[first]], [False], mesh))):
+        batch = b.to_batch(mesh)
+        out[name] = (b.n_shards(mesh), b.global_capacity(mesh),
+                     int(b.total_rows(mesh)), b.local_capacity,
+                     {n: _np(c) for n, c in batch.columns.items()},
+                     int(batch.n_valid))
+    return out
+
+
 def repartition(mesh, host_cols, key, n_rows):
     """``repartition_by_key`` of the sharded columns: this rank's live
     rows."""
