@@ -89,7 +89,22 @@ Phases, each printing its results on lines of its own:
      ±0.0 and ±inf: five queries at their LIMIT (one top-k selection
      each, counted by a spy) and at 1025 (the sort, none), each against
      a numpy oracle (and the JAX package's written-down rows for the NaN
-     table), timed warm (median of 5) and profiled (device-busy share).
+     table), timed warm (median of 5) and profiled (device-busy share);
+ 12. the public ``ops`` and ``kernels`` entry points at full width on
+     bench-2^24's facts and star-join-2^24's dims (the last 2^16 dims rows
+     past n_valid), on batches and a ``Table`` built with no device
+     argument (the entry points' default, the card): the entry step
+     (``__graft_entry__.entry()``'s ``query_step`` through
+     ``prims.compact_batch`` and ``ops.groupby_batch``), ``join_match_count``,
+     ``join_indices`` and ``join_batches`` (inner and LEFT) and
+     ``inner_join_indices`` between facts ``k`` and dims ``j``,
+     ``onehot_groupby_sums`` at span 4096 over the joined ``g`` with and
+     without a mask, ``matmul_agg_applicable`` at the gate's edges, and
+     ``sort_permutation`` / ``sort_batch`` on ``(k, v)``: each equal to the
+     same call on the CPU (the plain versions) and to a numpy oracle, bit
+     for bit, each raising the counts of the kernels it needs, no plain
+     version run on the card, each timed (CUDA events, median of 5) and
+     the entry step profiled (device-busy share).
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -782,16 +797,17 @@ def check_cd_main(torch, expand, agg, dev, d_star, d_q3, c_main):
 
 # -- phase 6: the star join and TPC-H Q3 -------------------------------------
 
-def star_data():
+def star_data(n: int = N_MAIN, n_keys: int = N_KEYS):
     """The JAX package bench's join inputs: facts (k, v) exactly as
     bench.py draws them, dims (j, g): j a permutation of [0, 2^20) (every
     fact key matches one dims row), g uniform in [0, 4096), next from the
-    same generator."""
+    same generator. ``n`` facts over ``n_keys`` keys (smaller in the card
+    tests)."""
     rng = np.random.default_rng(0)
-    k = rng.integers(0, N_KEYS, N_MAIN).astype(np.int32)
-    v = rng.integers(-1000, 1000, N_MAIN).astype(np.int32)
-    j = rng.permutation(N_KEYS).astype(np.int32)
-    g = rng.integers(0, DIM_SPAN, N_KEYS).astype(np.int32)
+    k = rng.integers(0, n_keys, n).astype(np.int32)
+    v = rng.integers(-1000, 1000, n).astype(np.int32)
+    j = rng.permutation(n_keys).astype(np.int32)
+    g = rng.integers(0, DIM_SPAN, n_keys).astype(np.int32)
     return {"k": k, "v": v}, {"j": j, "g": g}
 
 
@@ -1101,17 +1117,23 @@ def run_query_check(torch, H, counters, n, query, min_count):
 
 
 def profile_query(torch, ctx, query, top=20):
-    """One warm run of ``query`` under torch.profiler: device time by
-    kernel (the ``top`` longest), and the device's busy share of the wall
-    time. Returns the device-busy ms and the wall ms."""
+    """One warm run of ``query`` under torch.profiler: see
+    :func:`profile_call`."""
+    return profile_call(torch, lambda: ctx.sql(query), top)
+
+
+def profile_call(torch, fn, top=20):
+    """One warm run of ``fn`` under torch.profiler: device time by kernel
+    (the ``top`` longest), and the device's busy share of the wall time.
+    Returns the device-busy ms and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    ctx.sql(query)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.sql(query)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -2528,6 +2550,271 @@ def phase_11(torch, H, counters) -> dict:
     return out
 
 
+# -- phase 12: the public ops on the card at full width ------------------------
+
+# Phase 12's dims keep their last 2^16 rows past n_valid, so about one fact
+# in sixteen finds no match and the LEFT join differs from the inner one.
+DIMS_PAST_VALID = 1 << 16
+ENTRY_AGGS = [("v", "sum", "s"), ("v", "max", "m"), ("v", "count", "c")]
+
+
+def entry_step(batch):
+    """The port's form of ``__graft_entry__.entry()``'s ``query_step``: the
+    rows of ``batch`` with ``v > 0`` compacted (kernel A), then grouped by
+    ``k`` with sum, max and count (kernel B for the max, kernel A for the
+    segment ends), groups in ascending key order. Returns ``query_step``'s
+    tuple ``(k, s, m, c, n_valid)``."""
+    from harkdb_tpu_torch.ops import groupby_batch
+    from harkdb_tpu_torch.prims import compact_batch
+
+    mask = (batch.column("v") > 0) & batch.valid_mask()
+    out = groupby_batch(compact_batch(batch, mask), "k", ENTRY_AGGS)
+    return (out.column("k"), out.column("s"), out.column("m"),
+            out.column("c"), out.n_valid)
+
+
+def join_oracle(k, j, n_dims: int, kind: str):
+    """The join of facts ``k`` with the first ``n_dims`` dims rows in numpy
+    (``j`` a permutation of [0, len(j)) holding every fact key): facts in
+    stable key order, each with the dims row of its key. Returns ``(l_idx,
+    r_idx, matched)`` as int32, int32, bool; LEFT keeps the unmatched facts
+    with ``r_idx`` 0."""
+    pos = np.full(j.shape[0], -1, np.int64)
+    pos[j[:n_dims]] = np.arange(n_dims)
+    order = np.argsort(k, kind="stable")
+    r = pos[k[order]]
+    hit = r >= 0
+    if kind == "inner":
+        order, r, hit = order[hit], r[hit], hit[hit]
+    return (order.astype(np.int32), np.where(hit, r, 0).astype(np.int32),
+            hit)
+
+
+def _host(out) -> dict:
+    """A public op's result as named host arrays: a ColumnBatch's live rows
+    and count; a dict's tensors whole; a tuple ending in a count, the first
+    ``count`` rows of the other tensors and the count as an int."""
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+
+    if isinstance(out, dict):
+        return {name: t.cpu().numpy() for name, t in out.items()}
+    if isinstance(out, ColumnBatch):
+        cols, n_name, n = out.columns.items(), "n_valid", int(out.n_valid)
+    else:
+        cols, n_name, n = enumerate(out[:-1]), str(len(out) - 1), int(out[-1])
+    res = {str(name): t[:n].cpu().numpy() for name, t in cols}
+    res[n_name] = n
+    return res
+
+
+def _equal(a, b) -> bool:
+    """Every output of phase 12 is an integer or bool: equal bit for bit."""
+    if isinstance(a, int) or isinstance(b, int):
+        return a == b
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def median_event_ms(torch, fn, reps=5):
+    """Median of ``reps`` CUDA-event times (ms), one call of ``fn`` each,
+    after one warm-up. The queue is empty before each call, so a call whose
+    host work outlasts its device work is timed with that host work."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+# matmul_agg_applicable's answers at the edges of the dense GROUP BY's gate
+# (sum and count only, span at most 16384).
+DENSE_GATE_EDGES = {
+    (("sum", "count"), 16384): True, (("sum",), 16385): False,
+    (("count",), 1): True, (("sum", "max"), 4096): False,
+    (("min",), 1): False, ((), 16384): True,
+}
+
+
+def public_ops_oracles(facts, dims, n_dims: int) -> dict:
+    """Phase 12's expected results in numpy, by case name, in ``_host``'s
+    form."""
+    k, v = facts["k"], facts["v"]
+    rows = oracle(k, v)
+    rows = rows[np.argsort(rows[:, 0], kind="stable")]    # by key
+    out = {"entry_step": {**{str(i): rows[:, i] for i in range(4)},
+                          "4": rows.shape[0]}}
+    for kind in ("inner", "left"):
+        li, ri, hit = join_oracle(k, dims["j"], n_dims, kind)
+        n = li.shape[0]
+        out[f"join_match_count {kind}"] = {"0": n}
+        out[f"join_indices {kind}"] = {"0": li, "1": ri, "2": hit, "3": n}
+        out[f"join_batches {kind}"] = {
+            "k": k[li], "v": v[li],
+            "g": np.where(hit, dims["g"][ri], 0).astype(np.int32),
+            "matched": hit.astype(np.int32), "n_valid": n}
+        if kind == "inner":
+            out["inner_join_indices"] = {"0": li, "1": ri, "2": n}
+            g_in, v_in = dims["g"][ri], v[li]
+    for name, keep in (("onehot_groupby_sums", slice(None)),
+                       ("onehot_groupby_sums mask", v_in > 0)):
+        sums = np.bincount(g_in[keep], weights=v_in[keep].astype(np.int64),
+                           minlength=DIM_SPAN).astype(np.int64)
+        out[name] = {
+            "counts": np.bincount(g_in[keep],
+                                  minlength=DIM_SPAN).astype(np.int32),
+            "sums": sums.astype(np.uint32).astype(np.int32),
+            "keys": np.arange(DIM_SPAN, dtype=np.int32)}
+    order = np.lexsort((-v.astype(np.int64), k))     # k asc, then v desc
+    out["sort_permutation"] = {"perm": order.astype(np.int32)}
+    out["sort_batch"] = {"k": k[order], "v": v[order],
+                         "n_valid": k.shape[0]}
+    return out
+
+
+def public_ops_cases(torch, n: int):
+    """Phase 12's calls: (name, call(batches) -> result, the launches it
+    needs). ``batches`` holds the ``facts`` and ``dims`` batches and the
+    inner join's output ``joined`` (kernel C's input) on one device."""
+    from harkdb_tpu_torch.kernels import onehot_groupby_sums
+    import harkdb_tpu_torch.ops as O
+
+    def keys(b):
+        f, d = b["facts"], b["dims"]
+        return f.column("k"), f.n_valid, d.column("j"), d.n_valid
+
+    def onehot(b, masked):
+        j = b["joined"]
+        v = j.column("v")
+        counts, sums, axis = onehot_groupby_sums(
+            j.column("g"), [v], j.n_valid, 0, DIM_SPAN,
+            mask=(v > 0) if masked else None)
+        return {"counts": counts, "sums": sums[0], "keys": axis}
+
+    def sort_perm(b):
+        f = b["facts"]
+        perm, _keys = O.sort_permutation([f.column("k"), f.column("v")],
+                                         f.n_valid, [False, True])
+        return {"perm": perm}
+
+    ranges = {"flat_compact": 2, "flat_segscan_one_segment": 1}
+    pairs = dict(ranges, flat_compact=3, expand_fills=1)
+    cases = [("entry_step", lambda b: entry_step(b["facts"]),
+              {"flat_compact": 2, "flat_segscan": 1})]
+    for kind in ("inner", "left"):
+        cases += [
+            (f"join_match_count {kind}", lambda b, kind=kind: (
+                O.join_match_count(*keys(b), kind=kind),), ranges),
+            (f"join_indices {kind}", lambda b, kind=kind: O.join_indices(
+                *keys(b), n, kind=kind), pairs),
+            (f"join_batches {kind}", lambda b, kind=kind: O.join_batches(
+                b["facts"], b["dims"], "k", "j", n,
+                l_out={"k": "k", "v": "v"}, r_out={"g": "g"}, kind=kind,
+                matched_out="matched"), pairs),
+        ]
+    cases += [
+        ("inner_join_indices", lambda b: O.inner_join_indices(*keys(b), n),
+         pairs),
+        ("onehot_groupby_sums", lambda b: onehot(b, False),
+         {"onehot_groupby_sums": 1}),
+        ("onehot_groupby_sums mask", lambda b: onehot(b, True),
+         {"onehot_groupby_sums": 1}),
+        ("sort_permutation", sort_perm, {}),
+        ("sort_batch", lambda b: O.sort_batch(b["facts"], ["k", "v"],
+                                              [False, True]), {}),
+    ]
+    return cases
+
+
+def phase_public_ops(torch, H, counters, n: int = N_MAIN,
+                     n_keys: int = N_KEYS) -> dict:
+    """Phase 12: the public ``ops`` and ``kernels`` entry points on the card
+    at bench-2^24's facts and star-join-2^24's dims (``n`` facts over
+    ``n_keys`` keys): the entry step, the join ops between facts ``k`` and
+    dims ``j`` (inner and LEFT), kernel C's ``onehot_groupby_sums`` over the
+    joined ``g`` with and without a mask, and ``sort_permutation`` /
+    ``sort_batch`` on ``(k, v)``. The card's batches and a ``Table`` are
+    built with no device argument, so the entry points' default must put
+    them on the card. Each call runs with the launch counts set to 0 just
+    before and read just after, under ``PlainGuard``: it must launch the
+    kernels it needs and equal both the same call on CPU tensors (the plain
+    versions) and its numpy oracle. Each is then timed (CUDA events, median
+    of 5), the entry step also profiled (device-busy share)."""
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+    from harkdb_tpu_torch.kernels import matmul_agg_applicable
+    import harkdb_tpu_torch.ops as O
+
+    facts, dims = star_data(n, n_keys)
+    n_dims = n_keys - min(DIMS_PAST_VALID, n_keys // 16)
+    table = H.Table("t", facts)
+    if table.device.type != "cuda" or not all(
+            c.is_cuda for c in table.columns.values()):
+        raise AssertionError("Table with no device argument left its "
+                             "columns off the card")
+    del table
+    on_card = {"facts": ColumnBatch.from_numpy(facts),
+               "dims": ColumnBatch.from_numpy(dims)}
+    on_cpu = {"facts": ColumnBatch.from_numpy(facts, device="cpu"),
+              "dims": ColumnBatch.from_numpy(dims, device="cpu")}
+    if not all(c.is_cuda for b in on_card.values()
+               for c in (*b.columns.values(), b.n_valid)):
+        raise AssertionError("ColumnBatch.from_numpy with no device "
+                             "argument left a tensor off the card")
+    for b in (on_card, on_cpu):
+        d = b["dims"]
+        b["dims"] = ColumnBatch(d.columns, torch.full(
+            (), n_dims, dtype=torch.int32, device=d.device))
+    for (ops, span), want in DENSE_GATE_EDGES.items():
+        if matmul_agg_applicable(list(ops), span) != want:
+            raise AssertionError(f"matmul_agg_applicable({list(ops)}, "
+                                 f"{span}) is not {want}")
+    expect = public_ops_oracles(facts, dims, n_dims)
+    log(f"phase 12: {n:,} facts, {n_keys:,} dims ({n_dims:,} live); Table "
+        f"and batches on the card with no device argument; "
+        f"matmul_agg_applicable right at {len(DENSE_GATE_EDGES)} gate edges")
+    report = {}
+    with PlainGuard(torch):
+        for b in (on_card, on_cpu):
+            b["joined"] = O.join_batches(b["facts"], b["dims"], "k", "j", n,
+                                         l_out={"v": "v"}, r_out={"g": "g"})
+        for name, call, need in public_ops_cases(torch, n):
+            reset_launches(counters)
+            got = call(on_card)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+            short = {k: (launches[k], v) for k, v in need.items()
+                     if launches[k] < v}
+            if short:
+                raise AssertionError(f"{name} skipped a kernel (launched, "
+                                     f"needed): {short}")
+            got, ref = _host(got), _host(call(on_cpu))
+            for key, want in expect[name].items():
+                if not _equal(got[key], ref[key]):
+                    raise AssertionError(f"{name} {key}: the card differs "
+                                         f"from the CPU plain result")
+                if not _equal(got[key], want):
+                    raise AssertionError(f"{name} {key} differs from its "
+                                         f"numpy oracle")
+            ms, times = median_event_ms(torch, lambda: call(on_card))
+            report[name] = {"ms": ms, "times": times, "launches": launches}
+            log(f"ops {name}: equal to the CPU plain result and the "
+                f"oracle; launches {launches}; median {ms:.4f} ms of "
+                f"{[round(t, 4) for t in times]}")
+        busy_ms, wall_ms = profile_call(
+            torch, lambda: entry_step(on_card["facts"]), top=8)
+    report["entry_step"].update(busy_ms=busy_ms, wall_ms=wall_ms,
+                                busy_share=busy_ms / wall_ms)
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    log("phase 12: " + json.dumps(report))
+    return report
+
+
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
     """Bytes kernel A's work must move: the mask, each 32-byte sector (8
     rows) of each column that holds a kept row, and each kept word out."""
@@ -2737,6 +3024,9 @@ def main() -> int:
 
     # -- phase 11: the public primitives and the top-k LIMIT path -----------
     phase_11(torch, H, counters)
+
+    # -- phase 12: the public ops and kernel C's entry points at full width --
+    phase_public_ops(torch, H, counters)
 
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}

@@ -27,6 +27,7 @@ import torch
 
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
+from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
 
 
@@ -51,14 +52,7 @@ class Context:
                 raise ValueError(f"device {device} differs from the mesh's "
                                  f"device {mesh.device}")
             device = mesh.device
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Context(device='cuda') needs a CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        if device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device}")
+        device = resolve_device(device, "Context")
         self.config = config
         self.device = device
         self.mesh = mesh

@@ -16,6 +16,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from harkdb_tpu_torch.columnar.device import resolve_device
+
 
 class ColumnBatch:
     """An ordered set of named, equal-capacity 1-D tensors + valid count.
@@ -78,8 +80,11 @@ class ColumnBatch:
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray], capacity: int | None = None,
-                   device="cpu") -> "ColumnBatch":
-        """Build a padded batch on ``device`` from host 1-D arrays."""
+                   device=None) -> "ColumnBatch":
+        """Build a padded batch on ``device`` from host 1-D arrays:
+        ``"cuda"`` by default (raising when no CUDA device is available) or
+        ``"cpu"``, as for ``Context``."""
+        device = resolve_device(device, "ColumnBatch.from_numpy")
         if not arrays:
             return ColumnBatch({}, torch.zeros((), dtype=torch.int32,
                                                device=device))

@@ -15,6 +15,7 @@ import torch
 
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.columnar.batch import ColumnBatch, align_capacity
+from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.ingest import load_table
 
 
@@ -23,11 +24,14 @@ class Table:
 
     Mirrors the reference ``Table`` surface (``table.py:52-81``:
     get_schema / get_data / get_name) while storing true columnar data.
+    ``device`` is where the columns live: ``"cuda"`` by default (raising
+    when no CUDA device is available) or ``"cpu"``, as for ``Context``.
     """
 
     def __init__(self, table_name: str, source,
                  config: EngineConfig = DEFAULT_CONFIG,
-                 col_names: Optional[List[str]] = None, device="cpu"):
+                 col_names: Optional[List[str]] = None, device=None):
+        device = resolve_device(device, "Table")
         host_cols, headers, dicts = load_table(source, config, col_names)
         self._init(table_name, host_cols, headers, dicts, config, device)
 
@@ -35,8 +39,10 @@ class Table:
     def from_host(cls, table_name: str, host_cols: Dict[str, np.ndarray],
                   headers: List[str], dicts: Dict[str, np.ndarray],
                   config: EngineConfig = DEFAULT_CONFIG,
-                  device="cpu") -> "Table":
-        """A table over already-ingested host columns (no re-encoding)."""
+                  device=None) -> "Table":
+        """A table over already-ingested host columns (no re-encoding), on
+        ``device`` (``"cuda"`` by default, as for ``Table``)."""
+        device = resolve_device(device, "Table.from_host")
         t = cls.__new__(cls)
         t._init(table_name, dict(host_cols), list(headers), dict(dicts),
                 config, device)
@@ -50,7 +56,7 @@ class Table:
         self._dicts = dicts                  # string col → sorted dictionary
                                              # (host-side; device sees codes)
         self._n_rows = len(next(iter(host_cols.values()))) if host_cols else 0
-        self._device = torch.device(device)
+        self._device = device
         self._ranges: Dict[str, object] = {}
         cap = align_capacity(self._n_rows, config.row_align)
         cols = {}
@@ -134,14 +140,16 @@ class Table:
 
 
 def tables_from_reference(tables, config: EngineConfig = DEFAULT_CONFIG,
-                          device="cpu") -> Dict[str, Table]:
+                          device=None) -> Dict[str, Table]:
     """Take over a dict of the JAX package's tables (``harkdb_tpu`` Table
-    objects) as tables of this package on ``device``.
+    objects) as tables of this package on ``device`` (``"cuda"`` by
+    default, as for ``Table``).
 
     Duck-typed — reads only ``get_schema()``, ``host_columns`` and
     ``dicts`` — so this package never imports the JAX one. String columns
     keep their codes and dictionaries as they are.
     """
+    device = resolve_device(device, "tables_from_reference")
     return {
         name: Table.from_host(name, t.host_columns, t.get_schema(), t.dicts,
                               config, device)

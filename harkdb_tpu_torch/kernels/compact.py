@@ -29,6 +29,14 @@ _COLS_PER_LAUNCH = 32
 _WORD_DTYPES = (torch.int32, torch.float32)
 
 
+def flat_compact_supported(cols: Dict[str, torch.Tensor]) -> bool:
+    """Whether kernel A moves every column of ``cols``: int32 or float32.
+    The JAX package's predicate takes uint32 too; the ingest gives tables
+    int32 and float32 columns, so no uint32 column reaches the kernel in
+    either."""
+    return all(c.dtype in _WORD_DTYPES for c in cols.values())
+
+
 def _check_inputs(cols: Dict[str, torch.Tensor], mask: torch.Tensor,
                   n_valid: torch.Tensor) -> None:
     if mask.dim() != 1 or mask.dtype != torch.bool:
@@ -41,7 +49,7 @@ def _check_inputs(cols: Dict[str, torch.Tensor], mask: torch.Tensor,
         if c.dim() != 1 or c.shape[0] != n:
             raise ValueError(f"column {name!r} has shape {tuple(c.shape)}, "
                              f"expected ({n},)")
-        if c.dtype not in _WORD_DTYPES:
+        if not flat_compact_supported({name: c}):
             raise ValueError(f"column {name!r} has dtype {c.dtype}; the "
                              f"kernel moves int32/float32 words only")
 

@@ -49,6 +49,14 @@ _OP_CODE = {"add": 0, "max": 1, "min": 2, "mul": 3}
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 
+def segscan_supported(op_name: str, dtype: torch.dtype) -> bool:
+    """Whether kernel B scans ``dtype`` columns under ``op_name``: add, max,
+    min or mul over int32 or float32. The JAX package's predicate takes
+    every 4-byte type, uint32 too; the ingest gives tables int32 and
+    float32 columns, so no uint32 column reaches the kernel in either."""
+    return op_name in OPS and dtype in _DTYPE_CODE
+
+
 def _check_inputs(op_name: str, sid: Optional[torch.Tensor],
                   cols: Sequence[torch.Tensor]) -> None:
     if op_name not in OPS:
@@ -65,7 +73,7 @@ def _check_inputs(op_name: str, sid: Optional[torch.Tensor],
         if c.dim() != 1 or c.shape[0] != n:
             raise ValueError(f"column of shape {tuple(c.shape)}, expected "
                              f"({n},)")
-        if c.dtype != dt or dt not in _DTYPE_CODE:
+        if c.dtype != dt or not segscan_supported(op_name, dt):
             raise ValueError(f"columns must all be int32 or all float32, "
                              f"got {[str(x.dtype) for x in cols]}")
 

@@ -20,17 +20,28 @@ order. ``u32_key_order=True`` reproduces the reference's u32 key order.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
-from harkdb_tpu_torch.kernels.segscan import flat_segscan
+from harkdb_tpu_torch.kernels.segscan import flat_segscan, segscan_supported
 from harkdb_tpu_torch.ops.sort import lexsort_permutation
 from harkdb_tpu_torch.prims.compaction import compact_arrays
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 
 Tensor = torch.Tensor
+
+#: Aggregate name → the binary op that combines two partial results
+#: (``harkdb_tpu.ops.groupby.AGG_FUNCS``).
+AGG_FUNCS: Dict[str, Callable] = {
+    "sum": torch.add,
+    "prod": torch.mul,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "count": torch.add,
+    "countd": torch.add,     # COUNT(DISTINCT x): distinct counts add up
+}
 
 _SEGSCAN_NAME = {"sum": "add", "prod": "mul", "max": "max", "min": "min"}
 
@@ -72,7 +83,7 @@ def _scan(op: str, sid: Tensor, cols: List[Tensor]) -> List[Tensor]:
     takes int32/float32; other dtypes scan in those and convert back (bool
     add/mul are or/and, as jnp.add/jnp.multiply define them on bools)."""
     dt = cols[0].dtype
-    if dt in (torch.int32, torch.float32):
+    if segscan_supported(_SEGSCAN_NAME[op], dt):
         return flat_segscan(_SEGSCAN_NAME[op], sid, cols, _neutral_py(op, dt))
     if dt == torch.bool:
         op = {"sum": "max", "prod": "min"}.get(op, op)

@@ -16,7 +16,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
-from harkdb_tpu_torch.kernels.compact import flat_compact
+from harkdb_tpu_torch.kernels.compact import (
+    flat_compact, flat_compact_supported,
+)
 
 
 def _to_words(col: torch.Tensor
@@ -24,7 +26,7 @@ def _to_words(col: torch.Tensor
                                                       torch.Tensor]]:
     """32-bit word columns carrying ``col`` + the function restoring it."""
     dt = col.dtype
-    if dt in (torch.int32, torch.float32):
+    if flat_compact_supported({"c": col}):
         return [col], lambda ws: ws[0]
     size = col.element_size()
     if size == 4:

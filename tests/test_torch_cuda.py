@@ -12,7 +12,10 @@ IN and a correlated subquery) on the card against the CPU port; loads a
 numeric CSV onto the card through the native loader, finds kernels A and B
 in a ``Context.profile`` trace and runs queries under ``debug_checks``;
 runs the public primitives (``prims``) against their CPU plain results
-and the top-k LIMIT path against the CPU port.
+and the top-k LIMIT path against the CPU port; checks that the entry
+points with no device argument put their data on the card, and runs
+chip_smoke's phase 12 (the public ``ops`` and ``kernels`` entry points) at
+2^16 rows.
 Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
@@ -348,3 +351,53 @@ def test_top_k_path_on_card_matches_cpu_port(cuda):
             assert len(calls) == int(topk), query
     finally:
         planner.top_k_indices = real
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """``Table``, ``Table.from_host``, ``tables_from_reference`` and
+    ``ColumnBatch.from_numpy`` with no device argument put every tensor on
+    the card; a join of two such batches launches kernel D and equals the
+    same join on the CPU."""
+    import harkdb_tpu_torch as H
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+    from harkdb_tpu_torch.kernels import expand
+    from harkdb_tpu_torch.ops import join_batches
+
+    rng = np.random.default_rng(5)
+    data = {"k": rng.integers(0, 500, 4000).astype(np.int32),
+            "v": rng.integers(-9, 9, 4000).astype(np.int32)}
+    dims = {"j": rng.permutation(600).astype(np.int32),
+            "g": rng.integers(0, 50, 600).astype(np.int32)}
+    t = H.Table("t", data)
+    tables = {"t": t, "h": H.Table.from_host("h", data, ["k", "v"], {}),
+              **H.tables_from_reference({"r": t})}
+    for name, table in tables.items():
+        assert table.device.type == "cuda", name
+        assert all(c.is_cuda for c in table.columns.values()), name
+        assert table.batch().n_valid.is_cuda, name
+    on_card = [ColumnBatch.from_numpy(d) for d in (data, dims)]
+    for b in on_card:
+        assert b.device.type == "cuda"
+        assert all(c.is_cuda for c in b.columns.values())
+    on_cpu = [ColumnBatch.from_numpy(d, device="cpu") for d in (data, dims)]
+    expand.LAUNCHES = 0
+    got = join_batches(*on_card, "k", "j", 4000, kind="left")
+    torch.cuda.synchronize()
+    assert expand.LAUNCHES >= 1
+    want = join_batches(*on_cpu, "k", "j", 4000, kind="left")
+    assert int(got.n_valid) == int(want.n_valid) == 4000
+    assert got.names == want.names == ["k", "v", "j", "g"]
+    np.testing.assert_array_equal(got.to_numpy()[0], want.to_numpy()[0])
+
+
+def test_public_ops_on_card_match_cpu(cuda):
+    """chip_smoke's phase 12 at 2^16 facts over 2^12 keys: the entry step,
+    the join ops, kernel C's entry points and the sort ops on batches built
+    with no device argument, each launching its kernels, running no plain
+    version on the card and equal to the CPU plain result and its
+    oracle."""
+    import chip_smoke
+    import harkdb_tpu_torch as H
+
+    chip_smoke.phase_public_ops(torch, H, _counters(), n=1 << 16,
+                                n_keys=1 << 12)

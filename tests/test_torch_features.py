@@ -366,7 +366,7 @@ def test_ingest_errors_match_jax(source, text):
 
 def test_table_surface():
     """TestTable.test_surface: get_name / get_schema / get_data."""
-    t = Table("t", DATA_CSV, CFG)
+    t = Table("t", DATA_CSV, CFG, device="cpu")
     jt = harkdb_tpu.Table("t", DATA_CSV, harkdb_tpu.EngineConfig())
     assert t.get_name() == jt.get_name() == "t"
     assert t.get_schema() == jt.get_schema()
@@ -378,7 +378,7 @@ def test_table_surface():
 
 def test_table_padding():
     """TestTable.test_padding."""
-    t = Table("t", np.ones((10, 2), np.int32), CFG)
+    t = Table("t", np.ones((10, 2), np.int32), CFG, device="cpu")
     assert t.n_rows == 10
     assert t.capacity == CFG.row_align
     assert t.batch().capacity == CFG.row_align
@@ -391,12 +391,13 @@ def test_column_batch_roundtrip_and_padding():
     come back; the rows below n_valid are exactly the JAX batch's valid
     mask, and padding rows are zero."""
     b = ColumnBatch.from_numpy({"a": np.array([1, 2, 3], np.int32)},
-                               capacity=8)
+                               capacity=8, device="cpu")
     assert b.capacity == 8
     mat, names = b.to_numpy()
     assert names == ["a"]
     np.testing.assert_array_equal(mat[:, 0], [1, 2, 3])
-    b = ColumnBatch.from_numpy({"a": np.ones(3, np.int32)}, capacity=6)
+    b = ColumnBatch.from_numpy({"a": np.ones(3, np.int32)}, capacity=6,
+                               device="cpu")
     jb = JaxBatch.from_numpy({"a": np.ones(3, np.int32)}, capacity=6)
     live = torch.arange(b.capacity) < b.n_valid
     np.testing.assert_array_equal(live.numpy(), np.asarray(jb.valid_mask()))
@@ -410,7 +411,7 @@ def test_batch_passes_through_an_operator():
     a = np.arange(10, dtype=np.int32)
     f = (np.arange(10) * 0.5).astype(np.float32)
     mask = a % 3 == 0
-    b = ColumnBatch.from_numpy({"a": a, "f": f}, capacity=16)
+    b = ColumnBatch.from_numpy({"a": a, "f": f}, capacity=16, device="cpu")
     jb = JaxBatch.from_numpy({"a": a, "f": f}, capacity=16)
     out = compact_batch(b, torch.from_numpy(np.r_[mask, np.zeros(6, bool)]))
     jout = jax_compact_batch(jb, jnp.asarray(np.r_[mask, np.zeros(6, bool)]))

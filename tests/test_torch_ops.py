@@ -14,7 +14,10 @@ import torch
 import jax.numpy as jnp
 
 from harkdb_tpu.columnar.batch import ColumnBatch as JBatch
-from harkdb_tpu.ops.groupby import groupby_batch as jax_groupby_batch
+from harkdb_tpu.ops.groupby import (
+    groupby_aggregate as jax_groupby_aggregate,
+    groupby_batch as jax_groupby_batch,
+)
 import harkdb_tpu.ops.join as JJ
 from harkdb_tpu.ops.sort import (
     sort_batch as jax_sort_batch, sort_permutation as jax_sort_permutation,
@@ -28,7 +31,7 @@ from harkdb_tpu.prims.segmented import doubling_segmented_scan as jax_doubling
 from harkdb_tpu.sql.ast_nodes import BinOp as JBinOp
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch as TBatch
-from harkdb_tpu_torch.ops.groupby import groupby_batch
+from harkdb_tpu_torch.ops.groupby import groupby_aggregate, groupby_batch
 from harkdb_tpu_torch.ops import join as TJ
 from harkdb_tpu_torch.ops.sort import sort_batch, sort_permutation
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
@@ -79,7 +82,7 @@ def test_column_batch_numpy_round_trip(rng):
     arrays = {"a": rng.integers(-9, 9, 300).astype(np.int32),
               "f": rng.standard_normal(300).astype(np.float32)}
     j = JBatch.from_numpy(arrays, capacity=1024)
-    t = TBatch.from_numpy(arrays, capacity=1024)
+    t = TBatch.from_numpy(arrays, capacity=1024, device="cpu")
     assert t.capacity == j.capacity == 1024
     assert t.n_valid.dtype == torch.int32 and int(t.n_valid) == 300
     jm, jn = j.to_numpy()
@@ -212,6 +215,49 @@ class TestGroupBy:
         )
         assert t.names == j.names
         _assert_live_equal(j, t)
+
+    # tests/test_ops.py's TestGroupby cases that call groupby_aggregate
+    # directly: the reference's one real test (test.py:7: groupby col1,
+    # max(col3) over data.csv) and the pandas differentials' inputs.
+    @pytest.mark.parametrize("case", ["reference_example"] + [
+        f"pandas_{op}" for op in ("sum", "prod", "max", "min", "count")])
+    def test_groupby_aggregate_matches_jax(self, case):
+        if case == "reference_example":
+            k = np.array([6, 0, 0, 0, 0, 6, 1], np.int32)
+            v = np.array([1, 4, 4, 4, 4, 770, 3], np.int32)
+            op, n = "max", 7
+        else:
+            rng = np.random.default_rng(0)
+            op, n = case.split("_")[1], 500
+            k = np.zeros(1024, np.int32)
+            v = np.zeros(1024, np.int32)
+            k[:n] = rng.integers(0, 20, n)
+            v[:n] = rng.integers(1, 5, n)
+        jk, jouts, jn = jax_groupby_aggregate(
+            jnp.asarray(k), [(jnp.asarray(v), op)], jnp.int32(n))
+        tk, touts, tn = groupby_aggregate(
+            torch.from_numpy(k), [(torch.from_numpy(v), op)],
+            torch.tensor(n, dtype=torch.int32))
+        groups = int(jn)
+        assert int(tn) == groups and tn.dtype == torch.int32
+        got_k, got = tk[0].numpy()[:groups], touts[0].numpy()[:groups]
+        np.testing.assert_array_equal(got_k, np.asarray(jk[0])[:groups])
+        np.testing.assert_array_equal(got, np.asarray(jouts[0])[:groups])
+        assert got.dtype == np.asarray(jouts[0]).dtype
+        if case == "reference_example":
+            assert groups == 3
+            np.testing.assert_array_equal(got_k, [0, 1, 6])
+            np.testing.assert_array_equal(got, [4, 3, 770])
+        else:
+            import pandas as pd
+
+            want = pd.DataFrame({"k": k[:n], "v": v[:n]}).groupby(
+                "k")["v"].agg(op).sort_index()
+            np.testing.assert_array_equal(got_k, want.index.to_numpy())
+            # pandas aggregates in int64; the engine wraps at int32.
+            np.testing.assert_array_equal(
+                got, want.to_numpy().astype(np.int64).astype(
+                    np.uint32).view(np.int32))
 
     def test_no_live_rows(self, rng):
         n = 2000
@@ -542,10 +588,10 @@ class TestJoinMaterialize:
     def test_column_order_left_then_right(self):
         left = TBatch.from_numpy({"a": np.array([1, 2], np.int32),
                                   "b": np.array([10, 20], np.int32)},
-                                 capacity=8)
+                                 capacity=8, device="cpu")
         right = TBatch.from_numpy({"c": np.array([2, 1], np.int32),
                                    "d": np.array([200, 100], np.int32)},
-                                  capacity=8)
+                                  capacity=8, device="cpu")
         out = TJ.join_batches(left, right, "a", "c", out_capacity=8)
         assert out.names == ["a", "b", "c", "d"]
         mat, _ = out.to_numpy()
@@ -558,9 +604,9 @@ class TestJoinMaterialize:
             jl.column("a"), jl.n_valid, jr.column("c"), jr.n_valid,
             l_cols=[jl.column("a")], r_cols=[jr.column("c")])
         left = TBatch.from_numpy({"a": np.array([1, 2], np.int32)},
-                                 capacity=4)
+                                 capacity=4, device="cpu")
         right = TBatch.from_numpy({"c": np.array([2, 1], np.int32)},
-                                  capacity=4)
+                                  capacity=4, device="cpu")
         trng = TJ.compute_join_ranges(
             left.column("a"), left.n_valid, right.column("c"), right.n_valid,
             l_cols=[left.column("a")], r_cols=[right.column("c")])

@@ -1,8 +1,9 @@
 """harkdb_tpu_torch.prims vs harkdb_tpu.prims, on the CPU.
 
-Every case of tests/test_prims.py runs through both packages on the same
-inputs (one parametrised test, a case each): the golden values hold for
-both, and the port's outputs equal JAX's. Seeded random differentials
+Every case of tests/test_prims.py and of test_parity.py's
+TestExpandOuterReduceFoldsNe runs through both packages on the same inputs
+(one parametrised test, a case each): the golden values hold for both, and
+the port's outputs equal JAX's. Seeded random differentials
 follow, per operator and dtype, for ``segmented_scan``,
 ``segmented_reduce``, ``expand``, ``expand_reduce``, ``expand_outer_reduce``
 and ``compact``; then the public accessors of ``ColumnBatch`` and ``Table``
@@ -31,7 +32,7 @@ I32_MIN = -(2**31)
 
 
 class Jax:
-    P, Batch = JP, JBatch
+    P = JP
     add, maximum, minimum, mul = jnp.add, jnp.maximum, jnp.minimum, \
         jnp.multiply
     bitwise_xor = jnp.bitwise_xor
@@ -44,9 +45,13 @@ class Jax:
     def count(n):
         return jnp.int32(n)
 
+    @staticmethod
+    def batch(arrays):
+        return JBatch.from_numpy(arrays)
+
 
 class Torch:
-    P, Batch = TP, TBatch
+    P = TP
     add, maximum, minimum, mul = torch.add, torch.maximum, torch.minimum, \
         torch.mul
     bitwise_xor = torch.bitwise_xor
@@ -58,6 +63,10 @@ class Torch:
     @staticmethod
     def count(n):
         return torch.tensor(n, dtype=torch.int32)
+
+    @staticmethod
+    def batch(arrays):
+        return TBatch.from_numpy(arrays, device="cpu")
 
 
 def _np(x) -> np.ndarray:
@@ -253,8 +262,8 @@ def compaction_none_survive(B):
 
 
 def compaction_batch(B):
-    batch = B.Batch.from_numpy({"a": np.array([1, 2, 3, 4], np.int32),
-                                "b": np.array([10, 20, 30, 40], np.int32)})
+    batch = B.batch({"a": np.array([1, 2, 3, 4], np.int32),
+                     "b": np.array([10, 20, 30, 40], np.int32)})
     out = B.P.compact_batch(batch, B.arr([0, 1, 0, 1], np.bool_))
     assert int(out.n_valid) == 2
     np.testing.assert_array_equal(_np(out.column("a"))[:2], [2, 4])
@@ -296,6 +305,48 @@ def expand_reduce_max_op_fallback(B):
     return [out, _n]
 
 
+# tests/test_parity.py's TestExpandOuterReduceFoldsNe: a non-identity ``ne``
+# folds into every row (segmented.fut:97-103: row i is [ne] ++ elems).
+
+def outer_reduce_folds_non_identity_ne(B):
+    vals = B.arr([10, 20, 30])
+    out, n = B.P.expand_outer_reduce(
+        B.arr([2, 0, 1]), lambda s, loc: vals[s] + loc, B.add, 5,
+        out_capacity=8)
+    # row0: 5 + (10 + 11) = 26; row1: ne = 5; row2: 5 + 30 = 35
+    np.testing.assert_array_equal(_np(out)[:3], [26, 5, 35])
+    return [out, n]
+
+
+def outer_reduce_identity_ne_matches_expand_reduce(B):
+    vals = B.arr([4, 7, 2])
+
+    def get(s, loc):
+        return vals[s] * (loc + 1)
+
+    a, na = B.P.expand_reduce(B.arr([3, 1, 2]), get, B.add, 0,
+                              out_capacity=8)
+    b, nb = B.P.expand_outer_reduce(B.arr([3, 1, 2]), get, B.add, 0,
+                                    out_capacity=8)
+    np.testing.assert_array_equal(_np(a)[:3], _np(b)[:3])
+    return [a, na, b, nb]
+
+
+def outer_reduce_max_with_floor_ne(B):
+    vals = B.arr([3, 100])
+    out, n = B.P.expand_outer_reduce(
+        B.arr([2, 0]), lambda s, loc: vals[s] + loc, B.maximum, 50,
+        out_capacity=4)
+    np.testing.assert_array_equal(_np(out)[:2], [50, 50])   # ne as a floor
+    return [out, n]
+
+
+FOLDS_NE_CASES = [
+    outer_reduce_folds_non_identity_ne,
+    outer_reduce_identity_ne_matches_expand_reduce,
+    outer_reduce_max_with_floor_ne,
+]
+
 PRIMS_CASES = [
     scan_golden, scan_single_segment, scan_max_op, scan_random_vs_numpy,
     reduce_golden, reduce_unflagged_first_element_opens_segment,
@@ -310,9 +361,11 @@ PRIMS_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", PRIMS_CASES, ids=lambda c: c.__name__)
+@pytest.mark.parametrize("case", PRIMS_CASES + FOLDS_NE_CASES,
+                         ids=lambda c: c.__name__)
 def test_prims_case_matches_jax(case):
-    """tests/test_prims.py's case on both packages: golden values, and the
+    """A case of tests/test_prims.py or of test_parity.py's
+    TestExpandOuterReduceFoldsNe on both packages: golden values, and the
     port's outputs equal JAX's whole (padding included)."""
     want = case(Jax)
     got = case(Torch)
@@ -499,8 +552,8 @@ def test_column_batch_accessors_match_jax():
     cols = {"a": np.array([3, 1, 2, 9, 9], np.int32),
             "b": np.array([0.5, 1.5, -2.0, 0.0, 0.0], np.float32)}
     jb = JBatch(JBatch.from_numpy(cols).columns, jnp.int32(3))
-    tb = TBatch(TBatch.from_numpy(cols).columns, torch.tensor(
-        3, dtype=torch.int32))
+    tb = TBatch(TBatch.from_numpy(cols, device="cpu").columns,
+                torch.tensor(3, dtype=torch.int32))
     np.testing.assert_array_equal(tb.valid_mask().numpy(),
                                   np.asarray(jb.valid_mask()))
     assert tb.valid_mask().dtype == torch.bool
