@@ -83,6 +83,8 @@ def _run(ap, args, ctx, speak: bool) -> int:
         return 1
     df = ctx.sql_df(args.sql)
     say(df.to_string(index=False))
+    # sql_df fills rows_out from the frame and execute_ms up to the frame:
+    # the device's work, the result's copy and its decode included
     m = ctx.last_metrics
     say(f"({m.rows_out} rows, plan {m.plan_ms:.1f} ms, "
         f"exec {m.execute_ms:.1f} ms)", file=sys.stderr)

@@ -29,6 +29,9 @@ from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
+from harkdb_tpu_torch.utils.metrics import (
+    QueryMetrics, StageTimer, host_read, span,
+)
 
 
 class Context:
@@ -124,36 +127,49 @@ class Context:
 
     def sql_batch(self, sql_statement: str) -> Tuple[ColumnBatch, List[str]]:
         """Run a query; return the device-resident result batch + headers."""
-        from harkdb_tpu_torch.utils.metrics import QueryMetrics, StageTimer
+        out, m, _t0 = self._execute(sql_statement)
+        m.log()
+        return out, self._last_plan.output_names
 
+    def _execute(self, sql_statement: str
+                 ) -> Tuple[ColumnBatch, QueryMetrics, float]:
+        """Plan (or find the cached plan) and run it: the result batch, the
+        query's metrics (``plan_ms``; ``execute_ms`` to the plan's return)
+        and ``time.perf_counter()`` at the plan's start. Reads nothing
+        back beyond the plan's own host reads."""
         m = QueryMetrics(sql=sql_statement)
         key = (sql_statement, self._table_signature())
         m.cached_plan = key in self._plan_cache
-        with StageTimer() as t:
+        with StageTimer("hark.plan") as t:
             plan = self._plan(sql_statement)
         m.plan_ms = t.ms
         m.distributed = self.distributed
-        with StageTimer() as t:
-            if self.distributed:
-                # No retry: one rank retrying alone would enter collectives
-                # the others have left.
-                out = self._execute_distributed(plan)
-            else:
-                try:
-                    out = plan.execute(self.tables)
-                except (RuntimeError, OSError):
-                    # Queries are pure over resident tables — one
-                    # re-execution covers a transient device failure.
-                    if not self.config.retry_on_failure:
-                        raise
-                    out = plan.execute(self.tables)
-        m.execute_ms = t.ms
-        if self.config.collect_metrics:
-            m.rows_out = int(out.n_valid)
+        t0 = time.perf_counter()
+        if self.distributed:
+            # No retry: one rank retrying alone would enter collectives
+            # the others have left.
+            out = self._execute_distributed(plan)
+        else:
+            try:
+                out = plan.execute(self.tables)
+            except (RuntimeError, OSError):
+                # Queries are pure over resident tables — one
+                # re-execution covers a transient device failure.
+                if not self.config.retry_on_failure:
+                    raise
+                out = plan.execute(self.tables)
+        m.execute_ms = (time.perf_counter() - t0) * 1e3
         self.last_metrics = m
         self._last_plan = plan          # sql_df reads output_dicts from here
+        return out, m, t0
+
+    def _returned(self, m: QueryMetrics, t0: float, rows: int) -> None:
+        """Complete ``m`` once the result is on the host: ``execute_ms``
+        from the plan's start (``t0``), ``rows_out`` from the host result."""
+        m.execute_ms = (time.perf_counter() - t0) * 1e3
+        if self.config.collect_metrics:
+            m.rows_out = rows
         m.log()
-        return out, plan.output_names
 
     def _execute_distributed(self, plan) -> ColumnBatch:
         from harkdb_tpu_torch.parallel.executor import DistExecutor
@@ -185,9 +201,12 @@ class Context:
         output shape, ``FutharkContext.py:66,71``). Hidden NULL-indicator
         columns are dropped — the raw matrix shows the 0-fill; use
         :meth:`sql_df` for None/NaN decoding."""
-        batch, _names = self.sql_batch(sql_statement)
-        keep = [n for n in batch.names if not n.startswith("#nullflag")]
-        return batch.select(keep).to_numpy()[0]
+        batch, m, t0 = self._execute(sql_statement)
+        with span("hark.result"):
+            keep = [n for n in batch.names if not n.startswith("#nullflag")]
+            out = batch.select(keep).to_numpy()[0]
+        self._returned(m, t0, out.shape[0])
+        return out
 
     def sql_df(self, sql_statement: str):
         """Run a query, returning a pandas DataFrame with output headers.
@@ -198,41 +217,48 @@ class Context:
         NaN (numeric) through the hidden per-output NULL-indicator columns."""
         import pandas as pd
 
-        batch, names = self.sql_batch(sql_statement)
+        batch, m, t0 = self._execute(sql_statement)
+        names = self._last_plan.output_names
         dicts = getattr(self._last_plan, "output_dicts", None) or [None] * len(
             names
         )
-        n = int(batch.n_valid)
         out_internal = [
             nm for nm in batch.names if not nm.startswith("#nullflag")
         ]
         data = {}
-        for j, ((display, internal), d) in enumerate(zip(
-            zip(names, out_internal), dicts
-        )):
-            col = batch.columns[internal][:n].cpu().numpy()
-            flag = batch.columns.get(f"#nullflag{j}")
-            nulls = None
-            if flag is not None:
-                nulls = flag[:n].cpu().numpy() == 0
-                if not nulls.any():
-                    nulls = None
-            if d is not None:
-                col = d[np.clip(col, 0, len(d) - 1)]
-                if nulls is not None:
-                    col = col.astype(object)
-                    col[nulls] = None
-            elif nulls is not None:
-                col = col.astype(np.float64)
-                col[nulls] = np.nan
-            # duplicate display names get pandas-style disambiguation
-            key = display
-            i = 1
-            while key in data:
-                key = f"{display}.{i}"
-                i += 1
-            data[key] = col
-        return pd.DataFrame(data)
+        with span("hark.result"):
+            with host_read("result"):
+                n = int(batch.n_valid)
+            for j, ((display, internal), d) in enumerate(zip(
+                zip(names, out_internal), dicts
+            )):
+                with host_read("result"):
+                    col = batch.columns[internal][:n].cpu().numpy()
+                flag = batch.columns.get(f"#nullflag{j}")
+                nulls = None
+                if flag is not None:
+                    with host_read("result"):
+                        nulls = flag[:n].cpu().numpy() == 0
+                    if not nulls.any():
+                        nulls = None
+                if d is not None:
+                    col = d[np.clip(col, 0, len(d) - 1)]
+                    if nulls is not None:
+                        col = col.astype(object)
+                        col[nulls] = None
+                elif nulls is not None:
+                    col = col.astype(np.float64)
+                    col[nulls] = np.nan
+                # duplicate display names get pandas-style disambiguation
+                key = display
+                i = 1
+                while key in data:
+                    key = f"{display}.{i}"
+                    i += 1
+                data[key] = col
+            frame = pd.DataFrame(data)
+        self._returned(m, t0, n)
+        return frame
 
     def explain(self, sql_statement: str) -> str:
         return self._plan(sql_statement).explain()

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from harkdb_tpu_torch.columnar.device import resolve_device
+from harkdb_tpu_torch.utils.metrics import host_read
 
 
 class ColumnBatch:
@@ -71,11 +72,12 @@ class ColumnBatch:
     def to_numpy(self) -> Tuple[np.ndarray, List[str]]:
         """Materialize as a dense 2-D row-major matrix + header list (the
         reference's output shape, ``FutharkContext.py:66,71``). Syncs."""
-        n = int(self.n_valid)
         names = self.names
-        if not names:
-            return np.empty((n, 0)), names
-        cols = [self.columns[c][:n].cpu().numpy() for c in names]
+        with host_read("result"):
+            n = int(self.n_valid)
+            if not names:
+                return np.empty((n, 0)), names
+            cols = [self.columns[c][:n].cpu().numpy() for c in names]
         return np.stack(cols, axis=1), names
 
     @staticmethod

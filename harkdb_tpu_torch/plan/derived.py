@@ -27,6 +27,7 @@ import numpy as np
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.plan.errors import PlanError
+from harkdb_tpu_torch.utils.metrics import host_read, span
 
 
 class DerivedSource:
@@ -74,7 +75,8 @@ class DerivedSource:
         """The inner result, columns renamed to the schema (hidden NULL
         indicators dropped)."""
         if self._batch is None:
-            b = self.plan.execute(tables)
+            with span("hark.subquery"):
+                b = self.plan.execute(tables)
             outs = self._out_internal(b)
             self._batch = ColumnBatch(
                 {nm: b.columns[oi] for nm, oi in zip(self._schema, outs)},
@@ -101,10 +103,11 @@ class DerivedSource:
                                  shard_cache=shard_cache).execute(tables)
             else:
                 b = self.plan.execute(tables)
-            n = int(b.n_valid)
-            self._host = ({nm: b.columns[oi][:n].cpu().numpy()
-                           for nm, oi in zip(self._schema,
-                                             self._out_internal(b))}, n)
+            with host_read("subquery"):
+                n = int(b.n_valid)
+                self._host = ({nm: b.columns[oi][:n].cpu().numpy()
+                               for nm, oi in zip(self._schema,
+                                                 self._out_internal(b))}, n)
         return self._host
 
     def sharded(self, tables, mesh, config, shard_cache, binding: str,

@@ -29,6 +29,7 @@ from harkdb_tpu_torch.sql.ast_nodes import (
     Agg, BinOp, Case, CodeMap, Col, InSub, Lit, LutMember, NullTag, SubQuery,
     UnOp,
 )
+from harkdb_tpu_torch.utils.metrics import host_read
 
 Tensor = torch.Tensor
 
@@ -77,7 +78,8 @@ def _int_div(a: Tensor, b: Tensor, rem: bool) -> Tensor:
 
 
 def _lut(lut, dtype, device) -> Tensor:
-    return torch.as_tensor(lut, dtype=dtype).to(device)
+    with host_read("upload"):
+        return torch.as_tensor(lut, dtype=dtype).to(device)
 
 
 def eval_expr(expr, columns: Dict[str, Tensor], capacity: int,

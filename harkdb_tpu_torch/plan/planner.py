@@ -71,6 +71,7 @@ from harkdb_tpu_torch.sql.ast_nodes import (
 )
 from harkdb_tpu_torch.sql.parser import parse_sql
 from harkdb_tpu_torch.utils.checks import debug_validate
+from harkdb_tpu_torch.utils.metrics import host_read, span
 
 
 def _next_pow2(n: int) -> int:
@@ -85,7 +86,8 @@ def _check_join_total(ranges) -> None:
     that into a clear error instead of a silently empty/truncated
     result. The threshold is far beyond any materializable capacity."""
     if ranges.total_approx is not None:
-        approx = float(ranges.total_approx)
+        with host_read("join_guard"):
+            approx = float(ranges.total_approx)
         if approx > 1.8e9:
             raise PlanError(
                 f"Join result would exceed ~1.8e9 pairs "
@@ -1379,17 +1381,20 @@ class QueryPlan(StringLowering, NullSemantics):
             return
         values: Dict[object, object] = {}      # SubQuery → scalar | np array
         for s, p in self._subplans.items():
-            b = p.execute(tables) if execute is None else execute(p)
-            n = int(b.n_valid)
-            col = b.columns[b.names[0]][:n].cpu().numpy()
-            # SQL NULL semantics for subquery results: NULL rows (hidden
-            # indicator 0) are not VALUES — IN drops them (a non-match
-            # against a set containing NULL is UNKNOWN → false anyway),
-            # NOT IN with any NULL in the set is false for every row.
-            nf = b.columns.get("#nullflag0")
+            with span("hark.subquery"):
+                b = p.execute(tables) if execute is None else execute(p)
+                with host_read("subquery"):
+                    n = int(b.n_valid)
+                    col = b.columns[b.names[0]][:n].cpu().numpy()
+                    # SQL NULL semantics for subquery results: NULL rows
+                    # (hidden indicator 0) are not VALUES — IN drops them (a
+                    # non-match against a set containing NULL is UNKNOWN →
+                    # false anyway), NOT IN with any NULL in the set is
+                    # false for every row.
+                    nf = b.columns.get("#nullflag0")
+                    valid = None if nf is None else nf[:n].cpu().numpy() != 0
             has_null = False
-            if nf is not None:
-                valid = nf[:n].cpu().numpy() != 0
+            if valid is not None:
                 has_null = bool((~valid).any())
                 col = col[valid]
             d = p.output_dicts[0]
@@ -1572,10 +1577,11 @@ class QueryPlan(StringLowering, NullSemantics):
         info = torch.iinfo(key.dtype)
         kmin = torch.where(live, key, info.max).min()
         kmax = torch.where(live, key, info.min).max()
-        kmin, kmax, nonempty = torch.stack([
-            kmin.to(torch.int64), kmax.to(torch.int64),
-            live.any().to(torch.int64),
-        ]).tolist()
+        with host_read("probe"):
+            kmin, kmax, nonempty = torch.stack([
+                kmin.to(torch.int64), kmax.to(torch.int64),
+                live.any().to(torch.int64),
+            ]).tolist()
         return kmin, kmax, bool(nonempty)
 
     def _resolve_fast(self, batch: ColumnBatch):
@@ -1591,23 +1597,32 @@ class QueryPlan(StringLowering, NullSemantics):
         if self.fast_candidate is None:
             return None, 0
         if self._probed_fast is None:
-            kmin, kmax, nonempty = self._probe_impl(batch)
+            with span("hark.groupby"):
+                kmin, kmax, nonempty = self._probe_impl(batch)
             fast = (None, 0)
             if nonempty and not (
                 self.config.compat_u32_key_order and kmin < 0
             ):
-                span = kmax - kmin + 1
-                if span <= MAX_KEY_SPAN:
-                    fast = (_pad_span(span), kmin)
+                key_span = kmax - kmin + 1
+                if key_span <= MAX_KEY_SPAN:
+                    fast = (_pad_span(key_span), kmin)
             self._probed_fast = fast
         return self._probed_fast
 
     def _apply_pushdown(self, binding: str, batch: ColumnBatch) -> ColumnBatch:
-        mask = eval_expr(
-            self.pushdown[binding], batch.columns, batch.capacity,
-            self.config,
-        ).to(torch.bool)
-        return compact_batch(batch, mask)
+        with span("hark.filter"):
+            mask = eval_expr(
+                self.pushdown[binding], batch.columns, batch.capacity,
+                self.config,
+            ).to(torch.bool)
+            return compact_batch(batch, mask)
+
+    @staticmethod
+    def _compact_filter(batch: ColumnBatch, mask) -> ColumnBatch:
+        """A deferred WHERE / HAVING mask applied on its own (no sort to
+        fuse into)."""
+        with span("hark.filter"):
+            return compact_batch(batch, mask)
 
     def _join_ranges(self, left: ColumnBatch, right: ColumnBatch, l_keys,
                      r_keys, l_flags=(), r_flags=(), need_full=False):
@@ -1645,46 +1660,56 @@ class QueryPlan(StringLowering, NullSemantics):
         self._resolve_subqueries(tables)
         # Phase A: load + joins (count-then-materialize per join).
         b0 = self.bindings[0][0]
-        batch = self._load(tables, 0)
+        with span("hark.load"):
+            batch = self._load(tables, 0)
         if b0 in self.pushdown:
             batch = self._apply_pushdown(b0, batch)
         row_align = self.config.row_align
         for step_idx, (rb, lks, rks, kind) in enumerate(self.join_steps):
-            right = self._load(tables, 1 + step_idx)
+            with span("hark.load"):
+                right = self._load(tables, 1 + step_idx)
             if rb in self.pushdown:
                 right = self._apply_pushdown(rb, right)
             kflags = tuple(self.join_key_flags[step_idx])
             l_names, r_names = batch.names, right.names
-            if kind == "right":
-                # RIGHT JOIN = LEFT with the operands swapped: the incoming
-                # table is the preserved side; the accumulated relation's
-                # columns null-fill on its unmatched rows (#lmatched flag).
-                ranges = self._join_ranges(right, batch, rks, lks, (), kflags)
-                _check_join_total(ranges)
-                total = int(ranges.total_left)
-                batch = join_batches(
-                    None, None, None, None,
-                    _next_pow2(max(total, row_align)),
-                    {n: n for n in r_names}, {n: n for n in l_names},
-                    kind="left", ranges=ranges,
-                    matched_out=f"#lmatched.{rb}",
-                )
-                continue
-            ranges = self._join_ranges(batch, right, lks, rks, kflags, (),
-                                       kind == "full")
-            _check_join_total(ranges)
-            total = int(
-                ranges.total_full if kind == "full"
-                else ranges.total_left if kind == "left"
-                else ranges.total
-            )
-            batch = join_batches(
-                None, None, None, None, _next_pow2(max(total, row_align)),
-                {n: n for n in l_names}, {n: n for n in r_names},
-                kind="inner" if kind == "cross" else kind, ranges=ranges,
-                matched_out=self.null_flags.get(rb),
-                l_matched_out=f"#lmatched.{rb}" if kind == "full" else None,
-            )
+            # RIGHT JOIN = LEFT with the operands swapped: the incoming
+            # table is the preserved side; the accumulated relation's
+            # columns null-fill on its unmatched rows (#lmatched flag).
+            swap = kind == "right"
+            with span("hark.join"):
+                with span("hark.join.count"):
+                    if swap:
+                        ranges = self._join_ranges(right, batch, rks, lks,
+                                                   (), kflags)
+                    else:
+                        ranges = self._join_ranges(batch, right, lks, rks,
+                                                   kflags, (), kind == "full")
+                    _check_join_total(ranges)
+                    with host_read("join_total"):
+                        total = int(
+                            ranges.total_full if kind == "full"
+                            else ranges.total_left if kind in ("left", "right")
+                            else ranges.total
+                        )
+                with span("hark.join.fill"):
+                    cap = _next_pow2(max(total, row_align))
+                    if swap:
+                        batch = join_batches(
+                            None, None, None, None, cap,
+                            {n: n for n in r_names}, {n: n for n in l_names},
+                            kind="left", ranges=ranges,
+                            matched_out=f"#lmatched.{rb}",
+                        )
+                    else:
+                        batch = join_batches(
+                            None, None, None, None, cap,
+                            {n: n for n in l_names}, {n: n for n in r_names},
+                            kind="inner" if kind == "cross" else kind,
+                            ranges=ranges,
+                            matched_out=self.null_flags.get(rb),
+                            l_matched_out=(f"#lmatched.{rb}" if kind == "full"
+                                           else None),
+                        )
         # Phase B. The dense path's span: proven from table stats, or one
         # probe per plan.
         fast_span, key_min = self._resolve_fast(batch)
@@ -1697,7 +1722,8 @@ class QueryPlan(StringLowering, NullSemantics):
                 and batch.capacity >= self.config.shrink_rows_min
                 and (self.grouped or self.order_items or self.distinct
                      or self.window_specs)):
-            n_live = int(batch.n_valid)
+            with span("hark.filter"), host_read("where_shrink"):
+                n_live = int(batch.n_valid)
             cap_b = min(_next_pow2(max(n_live, row_align)), batch.capacity)
             if cap_b < batch.capacity:
                 batch = _slice(batch, cap_b)
@@ -1707,7 +1733,8 @@ class QueryPlan(StringLowering, NullSemantics):
             # of the full input capacity.
             g = self._phase_b(batch, fast_span, key_min,
                               stop_after_group=True)
-            n_groups = int(g.n_valid)
+            with span("hark.groupby"), host_read("n_groups"):
+                n_groups = int(g.n_valid)
             cap2 = min(_next_pow2(max(n_groups, row_align)), g.capacity)
             return self.run_tail(_slice(g, cap2))
         return self._phase_b(batch, fast_span, key_min)
@@ -1740,7 +1767,8 @@ class QueryPlan(StringLowering, NullSemantics):
                 # the Context invalidates on create/drop_table).
                 cached = self._remap_dev_cache.get(internal)
                 if cached is None:
-                    lut_t = torch.as_tensor(lut).to(col.device)
+                    with host_read("upload"):
+                        lut_t = torch.as_tensor(lut).to(col.device)
                     cached = lut_t[col.long()]
                     self._remap_dev_cache[internal] = cached
                 col = cached
@@ -1750,7 +1778,6 @@ class QueryPlan(StringLowering, NullSemantics):
     def _phase_b(self, batch: ColumnBatch, fast_span, key_min: int,
                  stop_after_group: bool = False) -> ColumnBatch:
         cap = batch.capacity
-        dev = batch.device
         if self.config.debug_checks:
             batch = debug_validate(batch, "phase_b input")
         # WHERE residual (post-join conjuncts, and conjuncts touching no
@@ -1759,9 +1786,10 @@ class QueryPlan(StringLowering, NullSemantics):
         # aggregation, group-by, ORDER BY, DISTINCT).
         where_mask = None
         if self.where_residual is not None:
-            where_mask = eval_expr(
-                self.where_residual, batch.columns, cap, self.config
-            ).to(torch.bool)
+            with span("hark.filter"):
+                where_mask = eval_expr(
+                    self.where_residual, batch.columns, cap, self.config
+                ).to(torch.bool)
             # Window partitions must only see surviving rows, so UNGROUPED
             # windows force the compaction that a downstream sort would
             # otherwise absorb. Grouped windows run over the aggregated
@@ -1771,23 +1799,48 @@ class QueryPlan(StringLowering, NullSemantics):
                 and (self.grouped or not self.window_specs)
             )
             if not absorbed:
-                batch = compact_batch(batch, where_mask)
+                batch = self._compact_filter(batch, where_mask)
                 where_mask = None
                 if self.config.debug_checks:
                     batch = debug_validate(batch, "after WHERE")
 
-        # GROUP BY + aggregates — the dense-key path when the gate admits
-        # it (small int key span, sum/count only; span proven from table
-        # stats or probed on the device — _resolve_fast).
-        if self.grouped and fast_span is not None:
-            key_name, span = self.fast_candidate, fast_span
+        if self.grouped:
+            with span("hark.groupby"):
+                batch = self._aggregate(batch, fast_span, key_min,
+                                        where_mask)
+            if stop_after_group:
+                return batch
+            return self.run_tail(batch)
+
+        # Grouped windows run in run_tail, after HAVING. (The JAX package
+        # computes them here as well and then again there, keeping the
+        # second result; group keys break every tie, so once gives the same
+        # rows in the same order.)
+        presorted = False
+        if self.window_specs:
+            with span("hark.tail"):
+                batch, presorted = compute_windows(self, batch,
+                                                   allow_skip_restore=True)
+        return self.run_tail(batch, filter_mask=where_mask,
+                             order_presorted=presorted)
+
+    def _aggregate(self, batch: ColumnBatch, fast_span, key_min: int,
+                   where_mask) -> ColumnBatch:
+        """GROUP BY + aggregates, the WHERE mask fused — the dense-key path
+        when the gate admits it (small int key span, sum/count only; span
+        proven from table stats or probed on the device — _resolve_fast),
+        else the sort path."""
+        cap = batch.capacity
+        dev = batch.device
+        if fast_span is not None:
+            key_name = self.fast_candidate
             sum_srcs = list(dict.fromkeys(
                 src for src, op, _ in self.agg_specs if op == "sum"
             ))
             counts_k, sums_k, keys_axis = onehot_groupby_sums(
                 batch.column(key_name),
                 [batch.column(s) for s in sum_srcs],
-                batch.n_valid, key_min, span, mask=where_mask,
+                batch.n_valid, key_min, fast_span, mask=where_mask,
             )
             sums_by_src = dict(zip(sum_srcs, sums_k))
             gcols = {key_name: keys_axis}
@@ -1796,74 +1849,57 @@ class QueryPlan(StringLowering, NullSemantics):
                     counts_k if op == "count" else sums_by_src[src]
                 )
             dense = ColumnBatch(gcols, torch.full(
-                (), span, dtype=torch.int32, device=dev))
-            batch = compact_batch(dense, counts_k > 0)
-            if stop_after_group:
-                return batch
-            return self.run_tail(batch)
+                (), fast_span, dtype=torch.int32, device=dev))
+            return compact_batch(dense, counts_k > 0)
 
-        if self.grouped:
-            cols = dict(batch.columns)
-            for name, gexpr in self.group_key_exprs:
-                cols[name] = eval_expr(gexpr, cols, cap, self.config)
-            for name in self.group_exec_keys:
-                # derived flags used as NULL-group exec keys materialize
-                # here (they are expressions over the matched columns)
-                dfe = self.derived_flag_cols.get(name)
-                if dfe is not None and name not in cols:
-                    cols[name] = eval_expr(
-                        dfe, cols, cap, self.config
-                    ).to(torch.int32)
-            for internal, expr in self.agg_arg_cols:
-                cols[internal] = eval_expr(expr, cols, cap, self.config)
-            if any(src == "#ones" for src, _, _ in self.agg_specs):
-                cols["#ones"] = torch.ones(cap, dtype=torch.int32, device=dev)
-            if self.group_keys:
-                keys = list(self.group_exec_keys)
-            else:
-                # implicit single group (select max(x) from t)
-                cols["#const"] = torch.zeros(cap, dtype=torch.int32,
-                                             device=dev)
-                keys = ["#const"]
-            batch = groupby_batch(
-                ColumnBatch(cols, batch.n_valid), keys, self.agg_specs,
-                mask=where_mask,
-                u32_key_order=self.config.compat_u32_key_order,
+        cols = dict(batch.columns)
+        for name, gexpr in self.group_key_exprs:
+            cols[name] = eval_expr(gexpr, cols, cap, self.config)
+        for name in self.group_exec_keys:
+            # derived flags used as NULL-group exec keys materialize
+            # here (they are expressions over the matched columns)
+            dfe = self.derived_flag_cols.get(name)
+            if dfe is not None and name not in cols:
+                cols[name] = eval_expr(
+                    dfe, cols, cap, self.config
+                ).to(torch.int32)
+        for internal, expr in self.agg_arg_cols:
+            cols[internal] = eval_expr(expr, cols, cap, self.config)
+        if any(src == "#ones" for src, _, _ in self.agg_specs):
+            cols["#ones"] = torch.ones(cap, dtype=torch.int32, device=dev)
+        if self.group_keys:
+            keys = list(self.group_exec_keys)
+        else:
+            # implicit single group (select max(x) from t)
+            cols["#const"] = torch.zeros(cap, dtype=torch.int32,
+                                         device=dev)
+            keys = ["#const"]
+        batch = groupby_batch(
+            ColumnBatch(cols, batch.n_valid), keys, self.agg_specs,
+            mask=where_mask,
+            u32_key_order=self.config.compat_u32_key_order,
+        )
+        if not self.group_keys:
+            # SQL: an ungrouped aggregate over EMPTY input is one row
+            # (COUNT 0; SUM/MIN/MAX/AVG/PROD NULL), not zero rows.
+            # Fabricate the row: padding slot 0 holds 0 for sum/count
+            # outputs but the op-neutral extreme for min/max, so zero
+            # it explicitly; the broadcast #grp_has column (0 ⇔ empty)
+            # is the agg_null_flags validity source for the non-count
+            # outputs (NULL via the hidden output indicators).
+            empty = batch.n_valid == 0
+            fixed = {}
+            for nme, cc in batch.columns.items():
+                cc = cc.clone()
+                cc[0] = torch.where(empty, torch.zeros_like(cc[0]), cc[0])
+                fixed[nme] = cc
+            fixed["#grp_has"] = (~empty).to(torch.int32).expand(
+                batch.capacity
             )
-            where_mask = None
-            if not self.group_keys:
-                # SQL: an ungrouped aggregate over EMPTY input is one row
-                # (COUNT 0; SUM/MIN/MAX/AVG/PROD NULL), not zero rows.
-                # Fabricate the row: padding slot 0 holds 0 for sum/count
-                # outputs but the op-neutral extreme for min/max, so zero
-                # it explicitly; the broadcast #grp_has column (0 ⇔ empty)
-                # is the agg_null_flags validity source for the non-count
-                # outputs (NULL via the hidden output indicators).
-                empty = batch.n_valid == 0
-                fixed = {}
-                for nme, cc in batch.columns.items():
-                    cc = cc.clone()
-                    cc[0] = torch.where(empty, torch.zeros_like(cc[0]), cc[0])
-                    fixed[nme] = cc
-                fixed["#grp_has"] = (~empty).to(torch.int32).expand(
-                    batch.capacity
-                )
-                batch = ColumnBatch(
-                    fixed, torch.clamp(batch.n_valid, min=1)
-                )
-            if stop_after_group:
-                return batch
-
-        # Grouped windows run in run_tail, after HAVING. (The JAX package
-        # computes them here as well and then again there, keeping the
-        # second result; group keys break every tie, so once gives the same
-        # rows in the same order.)
-        presorted = False
-        if self.window_specs and not self.grouped:
-            batch, presorted = compute_windows(self, batch,
-                                               allow_skip_restore=True)
-        return self.run_tail(batch, filter_mask=where_mask,
-                             order_presorted=presorted)
+            batch = ColumnBatch(
+                fixed, torch.clamp(batch.n_valid, min=1)
+            )
+        return batch
 
     def run_tail(self, batch: ColumnBatch, filter_mask=None,
                  order_presorted: bool = False) -> ColumnBatch:
@@ -1877,28 +1913,37 @@ class QueryPlan(StringLowering, NullSemantics):
         order (a window shape's sort matched it — plan/windows.py), so the
         ORDER BY sort is skipped.
         """
+        with span("hark.tail"):
+            return self._tail(batch, filter_mask, order_presorted)
+
+    def _tail(self, batch: ColumnBatch, filter_mask,
+              order_presorted: bool) -> ColumnBatch:
         dev = batch.device
+        # AVG's divisions and HAVING finish the aggregation.
         if self.grouped and self.post_computes:
-            gcols = dict(batch.columns)
-            apply_post_computes(gcols, self.post_computes)
-            batch = ColumnBatch(gcols, batch.n_valid)
+            with span("hark.groupby"):
+                gcols = dict(batch.columns)
+                apply_post_computes(gcols, self.post_computes)
+                batch = ColumnBatch(gcols, batch.n_valid)
 
         # HAVING — fused into the DISTINCT / ORDER BY sort when one follows.
         if self.having is not None:
-            hmask = eval_expr(
-                self.having, batch.columns, batch.capacity, self.config
-            ).to(torch.bool)
-            filter_mask = hmask if filter_mask is None else filter_mask & hmask
-            if not (self.distinct or self.order_items):
-                batch = compact_batch(batch, filter_mask)
-                filter_mask = None
+            with span("hark.groupby"):
+                hmask = eval_expr(
+                    self.having, batch.columns, batch.capacity, self.config
+                ).to(torch.bool)
+                filter_mask = (hmask if filter_mask is None
+                               else filter_mask & hmask)
+                if not (self.distinct or self.order_items):
+                    batch = compact_batch(batch, filter_mask)
+                    filter_mask = None
 
         # Windows over GROUPED output (standard SQL order: after GROUP BY
         # and HAVING — so a pending HAVING mask must compact first; window
         # partitions may only see surviving groups).
         if self.grouped and self.window_specs:
             if filter_mask is not None:
-                batch = compact_batch(batch, filter_mask)
+                batch = self._compact_filter(batch, filter_mask)
                 filter_mask = None
             batch, order_presorted = compute_windows(
                 self, batch, allow_skip_restore=True)
@@ -1977,7 +2022,7 @@ class QueryPlan(StringLowering, NullSemantics):
             # restored by compacting a pending WHERE mask (the key rides
             # along as ``#tkkey``).
             if filter_mask is not None:
-                tmp = compact_batch(
+                tmp = self._compact_filter(
                     ColumnBatch(dict(out.columns, **{"#tkkey": key}),
                                 out.n_valid),
                     filter_mask,
@@ -2001,7 +2046,7 @@ class QueryPlan(StringLowering, NullSemantics):
             )
         elif self.order_items and order_presorted:
             if filter_mask is not None:
-                out = compact_batch(out, filter_mask)
+                out = self._compact_filter(out, filter_mask)
                 filter_mask = None
         elif self.order_items:
             key_arrays = []
@@ -2029,7 +2074,7 @@ class QueryPlan(StringLowering, NullSemantics):
             )
             filter_mask = None
         elif filter_mask is not None:
-            out = compact_batch(out, filter_mask)
+            out = self._compact_filter(out, filter_mask)
             filter_mask = None
 
         # OFFSET: drop the first k rows — one compaction pass (rows must
@@ -2109,4 +2154,6 @@ def _plan_for_stmt(stmt, tables: Dict[str, Table],
 
 def plan_query(tables: Dict[str, Table], sql: str,
                config: EngineConfig = DEFAULT_CONFIG, views=None):
-    return _plan_for_stmt(parse_sql(sql, views=views), tables, config)
+    with span("hark.parse"):
+        stmt = parse_sql(sql, views=views)
+    return _plan_for_stmt(stmt, tables, config)

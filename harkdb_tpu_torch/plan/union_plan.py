@@ -36,6 +36,7 @@ from harkdb_tpu_torch.plan.planner import QueryPlan, _null_extreme_sub
 from harkdb_tpu_torch.prims.compaction import compact_batch
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 from harkdb_tpu_torch.sql.ast_nodes import Col, Lit
+from harkdb_tpu_torch.utils.metrics import host_read
 
 
 #: explicit mantissa bits per float type (numpy's ``finfo.nmant``)
@@ -123,14 +124,16 @@ class UnionPlan:
         (None when the arm's output is never NULL). NULL cells are zeroed
         so every NULL normalizes to the same (0, flag=0) pair — set-op
         semantics treat NULLs as equal, whatever expression produced them."""
-        n = int(batch.n_valid)
+        with host_read("union"):
+            n = int(batch.n_valid)
         cols, flags = [], []
         outs = [nm for nm in batch.names if not nm.startswith("#nullflag")]
         for j, internal in enumerate(outs):
             col = batch.columns[internal][:n]
             remaps = self._code_remaps[j]
             if remaps is not None and remaps[ai] is not None:
-                lut = torch.as_tensor(remaps[ai]).to(col.device)
+                with host_read("upload"):
+                    lut = torch.as_tensor(remaps[ai]).to(col.device)
                 col = lut[col.long()]
             fl = batch.columns.get(f"#nullflag{j}")
             if fl is not None:
@@ -152,7 +155,8 @@ class UnionPlan:
             ),
             keep,
         )
-        k = int(b.n_valid)
+        with host_read("union"):
+            k = int(b.n_valid)
         return [b.columns[f"#u{j}"][:k] for j in range(len(cols))]
 
     def _dedupe(self, cols: List[torch.Tensor], nf: int) -> List[torch.Tensor]:
@@ -242,8 +246,9 @@ class UnionPlan:
                     # The tail is eager, so a range readback is cheap.
                     for x in (a, c):
                         if not x.dtype.is_floating_point and x.shape[0]:
-                            self._check_span(max(abs(int(x.min())),
-                                                 abs(int(x.max()))))
+                            with host_read("union"):
+                                lo, hi = int(x.min()), int(x.max())
+                            self._check_span(max(abs(lo), abs(hi)))
                     a, c = a.to(tgt), c.to(tgt)
                 merged.append(torch.cat([a, c]))
             # NULL indicators concatenate alongside (missing side = all-1)

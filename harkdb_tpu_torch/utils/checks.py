@@ -14,6 +14,7 @@ back to the host: one synchronisation per call, paid only when
 from __future__ import annotations
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
+from harkdb_tpu_torch.utils.metrics import host_read
 
 
 class InvariantViolation(AssertionError):
@@ -30,7 +31,8 @@ def debug_validate(batch: ColumnBatch, where: str = "") -> ColumnBatch:
         )
     if caps:
         cap = caps.pop()
-        n = int(batch.n_valid)
+        with host_read("debug_checks"):
+            n = int(batch.n_valid)
         if not 0 <= n <= cap:
             raise InvariantViolation(f"{where}: n_valid={n} not in [0, {cap}]")
     return batch
