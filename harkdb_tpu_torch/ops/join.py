@@ -9,21 +9,23 @@ matched flags mark them as NULL, plan/nulls.py).
 
 The algorithm is the JAX package's, run on torch tensors:
 
-  1. **Ranges** (:func:`compute_join_ranges`): both sides concatenated,
-     rights before lefts, and sorted ONCE by the key tuple with a stable
-     sort (``ops.sort.lexsort_permutation``), so rights precede lefts within
-     every key run. Per sorted-left row, the match count is a cumsum
-     difference and the first match ``lo`` a cummax-filled run base. The
-     payload columns then move by gathers through the permutation, and the
-     per-side splits are stable compactions (kernel A on a card). Every
-     join total comes out of this one pass; the planner reads the one it
-     needs back to size the output (count-then-materialize).
+  1. **Ranges** (:func:`compute_join_ranges`): both sides' keys
+     concatenated, rights before lefts, and sorted ONCE by the key tuple
+     with a stable sort (``ops.sort.lexsort_permutation``), so rights
+     precede lefts within every key run. Per sorted-left row, the match
+     count is a cumsum difference and the first match ``lo`` a cummax-filled
+     run base. Only the tagged original row index rides the sort; the
+     per-side splits are stable compactions (kernel A on a card) of that
+     index and the run arithmetic. The carried columns do not move here.
+     Every join total comes out of this one pass; the planner reads the one
+     it needs back to size the output (count-then-materialize).
   2. **Materialization** (:func:`join_batches` / :func:`join_indices`):
      the segments that emit rows are pre-compacted (kernel A), then
      ``kernels.expand.expand_fills`` (kernel D on a card) gives each output
-     slot its segment and the segment's start, first match and match end;
-     the left values move by one gather per column and the right values by
-     one gather per column at the matching sorted-right position.
+     slot its segment and the segment's start, first match and match end.
+     That names each slot's original left and right row (one index gather
+     each), and every carried column moves once, by one gather from the
+     caller's column at the output's size (late materialization).
 
 Static shapes as in the JAX package: materialization takes
 ``out_capacity`` from the planner's count phase.
@@ -31,7 +33,7 @@ Static shapes as in the JAX package: materialization takes
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +42,7 @@ from harkdb_tpu_torch.kernels.expand import expand_fills
 from harkdb_tpu_torch.ops.sort import _pad_to_max, lexsort_permutation
 from harkdb_tpu_torch.prims.compaction import compact_arrays
 from harkdb_tpu_torch.prims.scan import running_max, running_min
+from harkdb_tpu_torch.utils.metrics import span
 
 Tensor = torch.Tensor
 
@@ -53,15 +56,17 @@ class JoinRanges(NamedTuple):
 
     Arrays are in sorted coordinates: index i of the ``l_*`` arrays is the
     i-th live left row in (key, original-order) sorted order (first
-    ``n_lefts`` entries live), likewise ``r_*`` for right rows.
+    ``n_lefts`` entries live), likewise ``r_*`` for right rows. The carried
+    columns stay the caller's, in original row order, and are read only
+    where the output slots are known (:func:`join_batches`).
     """
 
     l_orig: Tensor         # (nl,) original left row per sorted-left position
     counts: Tensor         # (nl,) right matches (0 past live)
     lo: Tensor             # (nl,) first matching sorted-right position
-    l_payload: Tuple[Tensor, ...]  # carried left columns, sorted-left order
+    l_cols: Tuple[Tensor, ...]  # carried left columns, as passed (no copy)
     r_orig: Tensor         # (nr,) original right row per sorted-right pos
-    r_payload: Tuple[Tensor, ...]  # carried right columns, sorted-right order
+    r_cols: Tuple[Tensor, ...]  # carried right columns, as passed
     n_lefts: Tensor        # live left rows
     total: Tensor          # inner-join pair count
     total_left: Tensor     # LEFT-join row count (unmatched lefts emit 1)
@@ -69,6 +74,27 @@ class JoinRanges(NamedTuple):
     #                            (FULL-OUTER ranges only, need_full=True)
     total_full: object = None  # total_left + unmatched right rows
     total_approx: object = None  # float32 pair total — int32 wrap guard
+
+    @property
+    def l_payload(self) -> Tuple[Tensor, ...]:
+        """The carried left columns in sorted-left order (the JAX package's
+        field), gathered on each access; no query path reads it."""
+        return _in_sorted_order(self.l_cols, self.l_orig)
+
+    @property
+    def r_payload(self) -> Tuple[Tensor, ...]:
+        """The carried right columns in sorted-right order."""
+        return _in_sorted_order(self.r_cols, self.r_orig)
+
+
+def _in_sorted_order(cols: Sequence[Tensor], orig: Tensor
+                     ) -> Tuple[Tensor, ...]:
+    # Entries past a side's live count are unspecified: clamp them into
+    # range so the gather reads a real row.
+    if not cols:
+        return ()
+    idx = torch.clamp(orig, 0, cols[0].shape[0] - 1)
+    return tuple(c.index_select(0, idx) for c in cols)
 
 
 def _i32(v: int, device) -> Tensor:
@@ -82,6 +108,10 @@ def compute_join_ranges(
     need_full: bool = False,
 ) -> JoinRanges:
     """One concat sort + two compactions → everything a join needs.
+
+    ``l_cols``/``r_cols`` are the columns the join will carry. They are
+    kept by reference, in original row order: neither the sort nor the
+    compactions move them (:func:`join_batches` gathers each once).
 
     ``l_key``/``r_key`` may be single tensors or LISTS of equal-length key
     tensors (multi-key equi-join: rows match when every key is equal).
@@ -125,16 +155,10 @@ def compute_join_ranges(
     l_tag = (l_idx | _LEFT_BIT) | torch.where(l_idx >= n_l, pad_bit, zero)
     r_tag = r_idx | torch.where(r_idx >= n_r, pad_bit, zero)
     orig_tagged = torch.cat([r_tag, l_tag])
-    payload = [
-        torch.cat([c.new_zeros(nr), c]) for c in l_cols
-    ] + [
-        torch.cat([c, c.new_zeros(nl)]) for c in r_cols
-    ]
 
     perm = lexsort_permutation(keys)
     skeys = [k[perm] for k in keys]
     stag = orig_tagged[perm]
-    spay = [p[perm] for p in payload]
     # side code from the tag bits: 0 = live right, 1 = live left, else pad.
     side_code = (stag >> 30) & 3
     sorig = stag & _ORIG_MASK
@@ -194,31 +218,26 @@ def compute_join_ranges(
     # Rows past the live count are unspecified: counts drives expansion
     # sizes downstream, so zero its tail.
     nn = _i32(n, dev)
-    nlc = len(l_cols)
     l_split, n_lefts = compact_arrays(
-        [sorig, counts_sorted, base] + spay[:nlc], is_left, nn,
+        [sorig, counts_sorted, base], is_left, nn,
     )
-    l_orig, cl, lo = (a[:nl] for a in l_split[:3])
+    l_orig, cl, lo = (a[:nl] for a in l_split)
     counts = torch.where(l_idx < n_lefts, cl, zero)
-    l_payload = tuple(a[:nl] for a in l_split[3:])
 
     r_extra = [r_matched_sorted.to(torch.int32)] if need_full else []
     r_split, n_rights = compact_arrays(
-        [sorig] + r_extra + spay[nlc:], is_right > 0, nn,
+        [sorig] + r_extra, is_right > 0, nn,
     )
     r_orig = r_split[0][:nr]
+    r_matched = None
     if need_full:
         r_matched = torch.where(
             r_idx < n_rights, r_split[1][:nr] > 0,
             torch.ones((), dtype=torch.bool, device=dev),
         )               # pads count as "matched" (never appended)
-        r_payload = tuple(a[:nr] for a in r_split[2:])
-    else:
-        r_matched = None
-        r_payload = tuple(a[:nr] for a in r_split[1:])
 
     return JoinRanges(
-        l_orig, counts, lo, l_payload, r_orig, r_payload,
+        l_orig, counts, lo, tuple(l_cols), r_orig, tuple(r_cols),
         n_lefts, total, total_left, r_matched, total_full, total_approx,
     )
 
@@ -244,32 +263,24 @@ def join_match_count(
     return rng.total
 
 
-def _stacked_gather(arrays: Sequence[Tensor], idx: Tensor) -> List[Tensor]:
-    """Gather several same-length columns by ONE index tensor. The JAX
-    package stacks them into one gather to save per-gather overhead; torch
-    gathers each column by the shared index, since stacking would copy
-    every column once more on the card."""
-    return [a[idx] for a in arrays]
+def _pair_slots(rng: JoinRanges, out_capacity: int, kind: str):
+    """Pair expansion: each output slot's original left and right row.
 
+    Returns ``(l_row, r_row, live, matched, total)`` per output slot:
+    ``l_row`` the original left row (0 where not ``live``), ``r_row`` the
+    original right row (0 where not ``matched``), both int32, and flags;
+    an inner join's slots are ``matched`` wherever they are ``live``.
 
-def _pair_slots(
-    rng: JoinRanges, out_capacity: int, kind: str,
-    l_value_cols: Sequence[Tensor],
-):
-    """Pair expansion + the left-side value gather.
-
-    Returns ``(l_vals, r_pos, live, matched, total)`` per output slot: the
-    gathered ``l_value_cols`` (tensors in sorted-left coordinates), the
-    matching sorted-right position (0 where unmatched), and flags.
-
-    Empty-emit sources are pre-compacted (kernel A), then ``expand_fills``
-    (kernel D on a card) gives every slot its segment and that segment's
-    ``offsets`` / ``lo`` / match-end fills, so the left gather carries only
-    the value columns. This is the JAX package's kernel path
-    (``harkdb_tpu/ops/join.py:354-379``) and the port's only one.
+    Empty-emit sources are pre-compacted (kernel A) with their original
+    left row, then ``expand_fills`` (kernel D on a card) gives every slot
+    its segment and that segment's ``offsets`` / ``lo`` / match-end fills.
+    This is the JAX package's kernel path
+    (``harkdb_tpu/ops/join.py:354-379``) and the port's only one; where the
+    JAX package carries the value columns through it, the port carries the
+    row index and leaves the columns to the caller.
     """
     counts, n_lefts = rng.counts, rng.n_lefts
-    nl = counts.shape[0]
+    nl, nr = counts.shape[0], rng.r_orig.shape[0]
     dev = counts.device
     zero = _i32(0, dev)
     l_idx = torch.arange(nl, dtype=torch.int32, device=dev)
@@ -286,12 +297,10 @@ def _pair_slots(
     out_idx = torch.arange(out_capacity, dtype=torch.int32, device=dev)
 
     packed, n_src = compact_arrays(
-        [emit, rng.lo, counts] + list(l_value_cols), emit > 0,
-        _i32(nl, dev),
+        [emit, rng.lo, counts, rng.l_orig], emit > 0, _i32(nl, dev),
     )
     p_emit = torch.where(l_idx < n_src, packed[0], zero)
-    p_lo, p_counts = packed[1], packed[2]
-    p_vals = list(packed[3:])
+    p_lo, p_counts, p_orig = packed[1:]
     offsets = torch.cumsum(p_emit, 0, dtype=torch.int32) - p_emit
     rend = p_lo + p_counts            # first sorted-right slot past the
     #                                   segment's matches — monotone
@@ -299,12 +308,16 @@ def _pair_slots(
         offsets, n_src, out_capacity, (p_lo, rend),
     )
     live = out_idx < total
-    r_pos_raw = lo_f + (out_idx - off_f)
-    matched = live & (r_pos_raw < rend_f)
-    r_pos = torch.where(matched, r_pos_raw, zero)
-    safe_seg = torch.where(live, torch.clamp(seg, max=nl - 1), zero)
-    l_vals = _stacked_gather(p_vals, safe_seg)
-    return l_vals, r_pos, live, matched, total
+    r_pos = lo_f + (out_idx - off_f)
+    matched = live & (r_pos < rend_f)
+    # Entries past the packed and split counts are unspecified (kernel A),
+    # so clamp every index into range and zero the rows of dead slots.
+    l_row = torch.where(
+        live, p_orig.index_select(0, torch.clamp(seg, 0, nl - 1)), zero)
+    r_row = torch.where(
+        matched, rng.r_orig.index_select(0, torch.clamp(r_pos, 0, nr - 1)),
+        zero)
+    return l_row, r_row, live, matched, total
 
 
 def _masked(keep: Tensor, col: Tensor) -> Tensor:
@@ -326,15 +339,8 @@ def join_indices(
     truncated — the planner sizes capacity from :func:`join_match_count`.
     """
     rng = compute_join_ranges(l_key, n_l, r_key, n_r)
-    l_vals, r_pos, live, matched, total = _pair_slots(
-        rng, out_capacity, kind, [rng.l_orig]
-    )
-    l_out = _masked(live, l_vals[0])
-    (r_out,) = _stacked_gather(
-        [rng.r_orig], torch.clamp(r_pos, max=rng.r_orig.shape[0] - 1)
-    )
-    r_out = _masked(matched, r_out)
-    return l_out, r_out, matched, total
+    l_row, r_row, _live, matched, total = _pair_slots(rng, out_capacity, kind)
+    return l_row, r_row, matched, total
 
 
 def inner_join_indices(
@@ -373,7 +379,7 @@ def join_batches(
     model — plan/nulls.py).
 
     ``ranges`` optionally supplies a precomputed :func:`compute_join_ranges`
-    result WITH matching payload columns (l_out/r_out keys order) — the
+    result WITH matching carried columns (l_out/r_out keys order) — the
     planner passes the count phase's ranges so the concat sort runs once
     per join; ``left``/``right`` may then be None but ``l_out``/``r_out``
     must be given explicitly. FULL OUTER requires ranges computed with
@@ -405,46 +411,46 @@ def join_batches(
             "precomputed ranges is supplied (its payload column order is "
             "defined by them)"
         )
-    l_vals, r_pos, live, matched, total = _pair_slots(
-        ranges, out_capacity, kind, list(ranges.l_payload)
-    )
-    nr = ranges.r_orig.shape[0]
-    r_gathered = _stacked_gather(
-        list(ranges.r_payload), torch.clamp(r_pos, max=nr - 1)
-    )
+    l_row, r_row, live, matched, total = _pair_slots(
+        ranges, out_capacity, kind)
 
-    cols = {}
-    for dst, col in zip(l_out.values(), l_vals):
-        cols[dst] = _masked(live, col)
-    zero_right = kind in ("left", "full")
-    for dst, col in zip(r_out.values(), r_gathered):
-        cols[dst] = _masked(matched if zero_right else live, col)
+    # Late materialization: each carried column moves once, from the
+    # caller's column at the output's size. index_select reads the int32
+    # rows as they are (``col[rows]`` would widen them per column).
+    with span("hark.join.fill.gather"):
+        cols = {dst: _masked(live, col.index_select(0, l_row))
+                for dst, col in zip(l_out.values(), ranges.l_cols)}
+        for dst, col in zip(r_out.values(), ranges.r_cols):
+            cols[dst] = _masked(matched, col.index_select(0, r_row))
     if matched_out is not None:
         cols[matched_out] = matched.to(torch.int32)
 
     if kind == "full":
         # Append the unmatched right rows after the left-preserving part:
-        # compact them (kernel A on a card), then blend by output position
-        # — the appended block starts at the left part's total.
+        # compact their original rows (kernel A on a card), then blend by
+        # output position — the appended block starts at the left part's
+        # total.
         if ranges.r_matched is None:
             raise ValueError(
                 "FULL OUTER join requires ranges computed with "
                 "need_full=True"
             )
         dev = live.device
-        um = ~ranges.r_matched
-        packed, _n_um = compact_arrays(
-            list(ranges.r_payload), um, _i32(nr, dev),
+        nr = ranges.r_orig.shape[0]
+        (um_orig,), _n_um = compact_arrays(
+            [ranges.r_orig], ~ranges.r_matched, _i32(nr, dev),
         )
         total_full = ranges.total_full
         out_idx = torch.arange(out_capacity, dtype=torch.int32, device=dev)
         app = (out_idx >= total) & (out_idx < total_full)
         j = torch.clamp(out_idx - total, 0, nr - 1)
-        app_vals = _stacked_gather(list(packed), j)
-        for dst, av in zip(r_out.values(), app_vals):
-            cols[dst] = torch.where(app, av, cols[dst])
-        for dst in l_out.values():
-            cols[dst] = _masked(~app, cols[dst])
+        a_row = torch.where(app, um_orig.index_select(0, j), _i32(0, dev))
+        with span("hark.join.fill.gather"):
+            for dst, col in zip(r_out.values(), ranges.r_cols):
+                cols[dst] = torch.where(app, col.index_select(0, a_row),
+                                        cols[dst])
+            for dst in l_out.values():
+                cols[dst] = _masked(~app, cols[dst])
         one = _i32(1, dev)
         if matched_out is not None:
             cols[matched_out] = torch.where(app, one, cols[matched_out])

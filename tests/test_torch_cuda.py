@@ -161,6 +161,61 @@ def test_join_queries_match_cpu_port(cuda):
     assert matmul_agg.LAUNCHES >= 1
 
 
+def test_join_memory_grows_with_the_output_not_the_input(cuda):
+    """A 2^24-row fact joined to a 10^5-row dimension filtered to 1% of
+    its rows, carrying 1 and then 8 fact columns: each result equals the
+    CPU path's, slot for slot, and the join's peak memory grows by less
+    than one input column's bytes (2^24 x 4 B) from 1 carried column to 8,
+    since a carried column is read once, at the output's size."""
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+    from harkdb_tpu_torch.ops.join import join_batches
+
+    rng = np.random.default_rng(24)
+    n, nd, live_d = 1 << 24, 100_000, 1_000
+    fact = {"fk": rng.integers(0, nd, n).astype(np.int32)}
+    for i in range(8):
+        fact[f"c{i}"] = (rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+                         if i % 2 else rng.standard_normal(n).astype(
+                             np.float32))
+    dim = {"dk": rng.permutation(nd).astype(np.int32),
+           "dv": rng.integers(0, 100, nd).astype(np.int32)}
+
+    def batch(arrays, n_valid, dev):
+        return ColumnBatch({k: torch.from_numpy(v).to(dev)
+                            for k, v in arrays.items()},
+                           torch.tensor(n_valid, dtype=torch.int32,
+                                        device=dev))
+
+    def join(n_carried, dev):
+        names = ["fk"] + [f"c{i}" for i in range(n_carried)]
+        left = batch({k: fact[k] for k in names}, n, dev)
+        right = batch(dim, live_d, dev)
+        total = int(np.isin(fact["fk"], dim["dk"][:live_d]).sum())
+        cap = 1 << max(total - 1, 1).bit_length()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out = join_batches(left, right, "fk", "dk", cap)
+        peak = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        assert int(out.n_valid) == total
+        return out, peak
+
+    peaks = {}
+    for k in (1, 8):
+        got, peaks[k] = join(k, cuda)
+        want, _ = join(k, torch.device("cpu"))
+        assert got.names == want.names
+        for name in want.names:
+            assert torch.equal(got.columns[name].cpu(), want.columns[name]), (
+                k, name)
+        del got, want
+    assert peaks[8] - peaks[1] < n * 4, peaks
+
+
 def test_running_max_min_on_card_match_cummax(cuda):
     from harkdb_tpu_torch.kernels import segscan
     from harkdb_tpu_torch.prims.scan import running_max, running_min

@@ -623,6 +623,141 @@ class TestJoinMaterialize:
                             kind="full", ranges=trng)
 
 
+_CARRIED_DTYPES = [np.int32, np.float32, np.int64, np.float64, np.uint8,
+                   np.int16]
+
+
+def _carried(rng, n, dtype):
+    """A column of ``dtype`` over its whole range; floats carry NaN, -0.0
+    and values float32 would round."""
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        x = (rng.standard_normal(n) * 1e3 + 1e-9).astype(dt)
+        x[rng.random(n) < 0.05] = np.nan
+        x[rng.random(n) < 0.05] = -0.0
+        return x
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+
+
+def _jax_words(arrays):
+    """The JAX package's join carries 4-byte columns only: a 1- or 2-byte
+    column rides as int32 values, an 8-byte one as its two int32 words."""
+    out = {}
+    for name, a in arrays.items():
+        if a.dtype.itemsize == 8:
+            w = a.view(np.int32).reshape(-1, 2)
+            out[name + ".lo"] = w[:, 0].copy()
+            out[name + ".hi"] = w[:, 1].copy()
+        elif a.dtype.itemsize < 4:
+            out[name] = a.astype(np.int32)
+        else:
+            out[name] = a
+    return out
+
+
+def _from_jax_words(cols, name, dtype):
+    dt = np.dtype(dtype)
+    if dt.itemsize == 8:
+        w = np.stack([cols[name + ".lo"], cols[name + ".hi"]], 1)
+        return np.ascontiguousarray(w).view(dt).reshape(-1)
+    return cols[name].astype(dt) if dt.itemsize < 4 else cols[name]
+
+
+def _run_join(mod, left, right, cap, kind, precomputed):
+    """One join step as the planner runs it: RIGHT is LEFT with the
+    operands swapped; ``precomputed`` hands ``join_batches`` the count
+    phase's ranges."""
+    lk, rk = "k", "j"
+    if kind == "right":
+        left, right, lk, rk, kind = right, left, rk, lk, "left"
+    extra = dict(matched_out="#m", l_matched_out="#lm")
+    if not precomputed:
+        return mod.join_batches(left, right, lk, rk, cap, kind=kind, **extra)
+    rng = mod.compute_join_ranges(
+        left.column(lk), left.n_valid, right.column(rk), right.n_valid,
+        l_cols=[left.column(n) for n in left.names],
+        r_cols=[right.column(n) for n in right.names],
+        need_full=kind == "full")
+    return mod.join_batches(None, None, None, None, cap,
+                            {n: n for n in left.names},
+                            {n: n for n in right.names}, kind=kind,
+                            ranges=rng, **extra)
+
+
+class TestLateMaterialization:
+    """The join reads each carried column once, from the caller's column,
+    at the output's size; its output stays the JAX package's: values,
+    dtype, pads and row order, on every slot of the capacity."""
+
+    @pytest.mark.parametrize("precomputed", [False, True])
+    @pytest.mark.parametrize("dtype", _CARRIED_DTYPES,
+                             ids=lambda d: np.dtype(d).name)
+    @pytest.mark.parametrize("kind", ["inner", "left", "full", "right"])
+    def test_join_batches_vs_jax(self, kind, dtype, precomputed):
+        rng = np.random.default_rng(
+            ["inner", "left", "full", "right"].index(kind) * 100
+            + _CARRIED_DTYPES.index(dtype) * 10 + precomputed)
+        nl, nr, cap = 600, 160, 2048
+        arrays_l = {"k": rng.integers(0, 90, nl).astype(np.int32),
+                    "a": _carried(rng, nl, dtype),
+                    "b": _carried(rng, nl, dtype)}
+        arrays_r = {"j": rng.integers(0, 90, nr).astype(np.int32),
+                    "c": _carried(rng, nr, dtype)}
+        jl, _ = _batches(_jax_words(arrays_l), 570)
+        jr, _ = _batches(_jax_words(arrays_r), 150)
+        _, tl = _batches(arrays_l, 570)
+        _, tr = _batches(arrays_r, 150)
+        j = _run_join(JJ, jl, jr, cap, kind, precomputed)
+        t = _run_join(TJ, tl, tr, cap, kind, precomputed)
+        assert int(t.n_valid) == int(j.n_valid)
+        jc = {n: np.asarray(c) for n, c in j.columns.items()}
+        names = [n.rsplit(".", 1)[0] if n.endswith((".lo", ".hi")) else n
+                 for n in j.names]
+        assert t.names == list(dict.fromkeys(names))
+        src = {**arrays_l, **arrays_r}
+        for name in t.names:
+            got = t.columns[name].numpy()
+            want = (_from_jax_words(jc, name, src[name].dtype)
+                    if name in src else jc[name])
+            assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+            assert got.shape == (cap,), name
+            # bit for bit, pads included: the join only moves values
+            np.testing.assert_array_equal(
+                got.view(f"u{got.dtype.itemsize}"),
+                want.view(f"u{want.dtype.itemsize}"), err_msg=name)
+
+    @pytest.mark.parametrize("need_full", [False, True])
+    @pytest.mark.parametrize("n_carried", [0, 1, 8])
+    def test_ranges_compact_the_row_index_only(self, monkeypatch, n_carried,
+                                               need_full):
+        """compute_join_ranges compacts 3 columns left (row, count, first
+        match) and 1 right (+ the matched flag under need_full), however
+        many columns the join carries; the ranges keep the caller's
+        columns themselves."""
+        widths = []
+        real = TJ.compact_arrays
+
+        def spy(arrays, mask, n_valid):
+            widths.append(len(arrays))
+            return real(arrays, mask, n_valid)
+
+        monkeypatch.setattr(TJ, "compact_arrays", spy)
+        rng = np.random.default_rng(n_carried)
+        lk = torch.from_numpy(rng.integers(0, 50, 400).astype(np.int32))
+        rk = torch.from_numpy(rng.integers(0, 50, 100).astype(np.int32))
+        l_cols = [torch.from_numpy(_carried(rng, 400, np.float64))
+                  for _ in range(n_carried)]
+        r_cols = [torch.from_numpy(_carried(rng, 100, np.int16))
+                  for _ in range(n_carried)]
+        n = torch.tensor(90, dtype=torch.int32)
+        ranges = TJ.compute_join_ranges(lk, n, rk, n, l_cols=l_cols,
+                                        r_cols=r_cols, need_full=need_full)
+        assert widths == [3, 2 if need_full else 1]
+        assert all(a is b for a, b in zip(ranges.l_cols, l_cols))
+        assert all(a is b for a, b in zip(ranges.r_cols, r_cols))
+
+
 # -- running max / min (prims.scan), the window and set-operation pieces ------
 
 _RUN_LENGTHS = [0, 1, 2, 1023, 1024, 1025]
