@@ -10,7 +10,10 @@ Counterpart of ``harkdb_tpu.api`` on one device chosen explicitly:
     (the JAX package's checkpoint format: npz files + ``manifest.json``)
   * ``profile`` → ``sql``'s matrix, with a ``torch.profiler`` trace
 
-Plans are cached on the Context keyed by (sql text, table signature).
+Plans are cached on the Context keyed by (sql text, table signature), the
+``PLAN_CACHE_ENTRIES`` most recently used. A plan keeps its parse, binding
+and lowering, never a result: subqueries and derived tables run on every
+execution, and what they made is dropped when the query returns.
 Under a mesh (``Context(mesh=...)``) every rank runs the same calls and
 queries run through ``parallel/executor.py``.
 """
@@ -20,6 +23,7 @@ from __future__ import annotations
 import os
 import tempfile
 import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -30,8 +34,12 @@ from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.utils.metrics import (
-    QueryMetrics, StageTimer, host_read, span,
+    QueryMetrics, StageTimer, host_read, inner_plans_run, span,
 )
+
+#: Plans a Context keeps, the least recently used dropped first: a bound on
+#: host memory when every query brings new literals.
+PLAN_CACHE_ENTRIES = 256
 
 
 class Context:
@@ -60,8 +68,10 @@ class Context:
         self.device = device
         self.mesh = mesh
         self.tables: Dict[str, Table] = {}
+        # card bytes each table took, as the allocator counts them
+        self._table_bytes: Dict[str, int] = {}
         self.views: Dict[str, str] = {}
-        self._plan_cache: Dict[tuple, object] = {}
+        self._plan_cache: "OrderedDict[tuple, object]" = OrderedDict()
         self._shard_cache: Dict[tuple, object] = {}
         self.last_metrics = None
 
@@ -74,14 +84,18 @@ class Context:
         # Under a mesh of several ranks the Table keeps host copies only
         # (its tensors on the CPU); each rank's chunk goes to mesh.device
         # when a query first reads it (parallel/executor.py's shard cache).
-        self.tables[table_name] = Table(
+        before = self._allocated()
+        table = Table(
             table_name, source, self.config, col_names=col_names,
             device="cpu" if self.distributed else self.device,
         )
+        self._table_bytes[table_name] = self._allocated() - before
+        self.tables[table_name] = table
         self._forget(table_name)
 
     def drop_table(self, table_name: str) -> None:
         del self.tables[table_name]
+        self._table_bytes.pop(table_name, None)
         self._forget(table_name)
 
     def _forget(self, table_name: str) -> None:
@@ -116,6 +130,10 @@ class Context:
             plan = plan_query(self.tables, sql_statement, self.config,
                               views=self.views)
             self._plan_cache[key] = plan
+            if len(self._plan_cache) > PLAN_CACHE_ENTRIES:
+                self._plan_cache.popitem(last=False)
+        else:
+            self._plan_cache.move_to_end(key)
         return plan
 
     def _table_signature(self) -> tuple:
@@ -128,6 +146,7 @@ class Context:
     def sql_batch(self, sql_statement: str) -> Tuple[ColumnBatch, List[str]]:
         """Run a query; return the device-resident result batch + headers."""
         out, m, _t0 = self._execute(sql_statement)
+        m.held_bytes = self._held_bytes()
         m.log()
         return out, self._last_plan.output_names
 
@@ -144,6 +163,7 @@ class Context:
             plan = self._plan(sql_statement)
         m.plan_ms = t.ms
         m.distributed = self.distributed
+        inner0 = inner_plans_run()
         t0 = time.perf_counter()
         if self.distributed:
             # No retry: one rank retrying alone would enter collectives
@@ -159,6 +179,7 @@ class Context:
                     raise
                 out = plan.execute(self.tables)
         m.execute_ms = (time.perf_counter() - t0) * 1e3
+        m.inner_plans_run = inner_plans_run() - inner0
         self.last_metrics = m
         self._last_plan = plan          # sql_df reads output_dicts from here
         return out, m, t0
@@ -169,7 +190,29 @@ class Context:
         m.execute_ms = (time.perf_counter() - t0) * 1e3
         if self.config.collect_metrics:
             m.rows_out = rows
+        m.held_bytes = self._held_bytes()
         m.log()
+
+    def _allocated(self) -> int:
+        """``torch.cuda.memory_allocated`` of the Context's card (0 off
+        it): an allocator statistic read on the host, no sync (read from
+        the nested statistics, which ``memory_allocated`` would flatten
+        and sort first)."""
+        if self.device.type != "cuda" or not torch.cuda.is_initialized():
+            return 0
+        stats = torch.cuda.memory_stats_as_nested_dict(self.device)
+        return stats["allocated_bytes"]["all"]["current"]
+
+    def _held_bytes(self) -> int:
+        """Card memory allocated less the resident tables (as
+        ``create_table`` found them, and on a mesh their cached shards):
+        what queries left on the card. -1 off the card."""
+        if self.device.type != "cuda":
+            return -1
+        shards = sum(c.numel() * c.element_size()
+                     for sb in self._shard_cache.values()
+                     for c in (*sb.columns.values(), sb.count))
+        return self._allocated() - sum(self._table_bytes.values()) - shards
 
     def _execute_distributed(self, plan) -> ColumnBatch:
         from harkdb_tpu_torch.parallel.executor import DistExecutor
@@ -205,6 +248,7 @@ class Context:
         with span("hark.result"):
             keep = [n for n in batch.names if not n.startswith("#nullflag")]
             out = batch.select(keep).to_numpy()[0]
+        del batch                       # held_bytes counts what remains
         self._returned(m, t0, out.shape[0])
         return out
 
@@ -257,6 +301,7 @@ class Context:
                     i += 1
                 data[key] = col
             frame = pd.DataFrame(data)
+        batch = flag = None             # held_bytes counts what remains
         self._returned(m, t0, n)
         return frame
 

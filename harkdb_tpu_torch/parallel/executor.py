@@ -2,12 +2,12 @@
 
 Counterpart of ``harkdb_tpu.parallel.executor``. Every rank runs
 :meth:`DistExecutor.execute` on the same plan: its chunk of each table is
-sharded once and cached (a derived table's inner result once per plan,
-on its ``DerivedSource``), joins, windows and GROUP BY run with exchanges
-(``dist_ops``, ``global_window``), and the tail (HAVING / windows over
-grouped output / ORDER BY / OFFSET / LIMIT / projection / DISTINCT) runs
-sharded (``config.dist_tail``) or on the gathered result through the
-plan's own ``run_tail``. Every rank returns the whole result (the JAX
+sharded once and cached (a derived table's inner result once per
+execution, on its ``DerivedSource``), joins, windows and GROUP BY run
+with exchanges (``dist_ops``, ``global_window``), and the tail (HAVING /
+windows over grouped output / ORDER BY / OFFSET / LIMIT / projection /
+DISTINCT) runs sharded (``config.dist_tail``) or on the gathered result
+through the plan's own ``run_tail``. Every rank returns the whole result (the JAX
 package's multi-process delivery: an all_gather), or, with
 ``deliver=False``, its block of the tail's projected result (the UNION
 tail composes arms from those).
@@ -126,13 +126,19 @@ class DistExecutor:
         whole result. ``deliver=False`` returns this rank's block of the
         tail's projected result (``#out`` / ``#nullflag`` columns, a
         :class:`ShardedBatch`) for the UNION tail to compose; the
-        ``dist_tail=False`` path delivers all the same."""
+        ``dist_tail=False`` path delivers all the same.
+
+        Subqueries run first, over the mesh, and their results are read
+        back and substituted before the pipeline reads the expressions;
+        they and the derived tables' blocks live for this call only
+        (``QueryPlan.one_execution``)."""
+        with self.plan.one_execution(
+                tables, execute=lambda p: self._run_subplan(tables, p)):
+            return self._execute(tables, deliver)
+
+    def _execute(self, tables: Dict[str, Table], deliver: bool):
         plan = self.plan
         self._deliver = deliver
-        # Subqueries run first, over the mesh, and their results are read
-        # back and substituted before the pipeline reads the expressions.
-        plan._resolve_subqueries(
-            tables, execute=lambda p: self._run_subplan(tables, p))
         work = self._pushdown(self._shard_table(tables, 0),
                               plan.bindings[0][0])
         # Order-restoration chain: per join, newest first, the specs that

@@ -4,15 +4,15 @@ Counterpart of ``harkdb_tpu.plan.derived``. A derived table
 is an inner plan (a ``QueryPlan``, or a ``UnionPlan`` for a set-operation
 body) wrapped in a Table-compatible source: the OUTER plan resolves names
 against the inner plan's output schema at plan time, and the inner result
-materializes lazily at first execution (cached on the plan — tables are
-immutable while a plan is cached, the same contract subqueries rely on).
-String outputs carry their dictionaries through, so LIKE / comparisons /
-joins on derived string columns work unchanged.
+materializes lazily, on first use within each execution of the outer plan,
+which drops it when it returns (``release``): a cached plan keeps its
+plan, never a result. String outputs carry their dictionaries through, so
+LIKE / comparisons / joins on derived string columns work unchanged.
 
 On a mesh the inner query runs over the mesh (``DistExecutor``, or
 ``UnionPlan.execute(mesh=...)`` for a set operation); every rank receives
 the whole result, keeps the same host copy and shards it again for the
-outer plan (``sharded``).
+outer plan (``sharded``), both for that execution only.
 
 Limits, as in the JAX package: the dense GROUP BY gate stays off for
 derived columns (no host stats), and hidden LEFT-JOIN NULL flags do not
@@ -27,7 +27,7 @@ import numpy as np
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.plan.errors import PlanError
-from harkdb_tpu_torch.utils.metrics import host_read, span
+from harkdb_tpu_torch.utils.metrics import host_read, inner_plan
 
 
 class DerivedSource:
@@ -47,10 +47,17 @@ class DerivedSource:
                 "alias duplicated expressions"
             )
         self._schema = names
+        # This execution's materialization (``release`` drops it).
         self._batch: Optional[ColumnBatch] = None
         self._host: Optional[Tuple[Dict[str, np.ndarray], int]] = None
         self._shards: Dict[str, object] = {}   # per outer binding (a CTE
         #                                        source may back several)
+
+    def release(self) -> None:
+        """Drop the materialization: the outer plan's execution ends."""
+        self._batch = None
+        self._host = None
+        self._shards = {}
 
     # -- planner surface ------------------------------------------------------
     def get_schema(self) -> List[str]:
@@ -73,9 +80,9 @@ class DerivedSource:
 
     def batch(self, tables) -> ColumnBatch:
         """The inner result, columns renamed to the schema (hidden NULL
-        indicators dropped)."""
+        indicators dropped); run on first use within an execution."""
         if self._batch is None:
-            with span("hark.subquery"):
+            with inner_plan():
                 b = self.plan.execute(tables)
             outs = self._out_internal(b)
             self._batch = ColumnBatch(
@@ -92,17 +99,21 @@ class DerivedSource:
         if self._host is None:
             from harkdb_tpu_torch.plan.union_plan import UnionPlan
 
-            if isinstance(self.plan, UnionPlan):
-                # a set operation drives its own arms (distributed or not)
-                b = self.plan.execute(tables, mesh=mesh,
-                                      shard_cache=shard_cache)
-            elif mesh is not None and mesh.size > 1:
-                from harkdb_tpu_torch.parallel.executor import DistExecutor
+            with inner_plan():
+                if isinstance(self.plan, UnionPlan):
+                    # a set operation drives its own arms (distributed or
+                    # not)
+                    b = self.plan.execute(tables, mesh=mesh,
+                                          shard_cache=shard_cache)
+                elif mesh is not None and mesh.size > 1:
+                    from harkdb_tpu_torch.parallel.executor import (
+                        DistExecutor,
+                    )
 
-                b = DistExecutor(self.plan, mesh, config,
-                                 shard_cache=shard_cache).execute(tables)
-            else:
-                b = self.plan.execute(tables)
+                    b = DistExecutor(self.plan, mesh, config,
+                                     shard_cache=shard_cache).execute(tables)
+                else:
+                    b = self.plan.execute(tables)
             with host_read("subquery"):
                 n = int(b.n_valid)
                 self._host = ({nm: b.columns[oi][:n].cpu().numpy()
@@ -112,9 +123,10 @@ class DerivedSource:
 
     def sharded(self, tables, mesh, config, shard_cache, binding: str,
                 remaps: Dict[str, np.ndarray]):
-        """This rank's block of the inner result, cached here per outer
-        binding (not in the Context's shard cache, which is keyed by table
-        name: two plans may give different inner queries one alias).
+        """This rank's block of the inner result, kept here per outer
+        binding for the execution (not in the Context's shard cache, which
+        is keyed by table name: two plans may give different inner queries
+        one alias).
         ``remaps`` are the outer plan's merged-dictionary code LUTs,
         applied on the host as for base tables."""
         if binding not in self._shards:

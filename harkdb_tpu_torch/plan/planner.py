@@ -30,18 +30,24 @@ Execution model (the JAX planner's, run eagerly — torch needs no jit):
 
   * window functions run after WHERE (ungrouped) or after HAVING
     (grouped) — ``plan/windows.py``;
-  * derived tables / CTEs / views materialize once per plan, lazily
+  * derived tables / CTEs / views materialize once per execution, lazily
     (``plan/derived.py``); set operations are ``plan/union_plan.py``.
+
+A plan keeps what its parse, binding and lowering give, and host statistics
+of its tables (the probed key span), never a result: the subqueries' values
+and the derived tables' materializations live for one ``execute``
+(``one_execution``), so the card holds nothing for a cached plan.
 
 These readbacks (and the join-total wrap guard) are the only host
 synchronisations before the result is read, apart from those the JAX
-package makes as well: each subquery's result is read back once per plan
-and substituted as literals (``_resolve_subqueries``), and the set-operation
-tail reads its row counts (``UnionPlan``).
+package makes as well: each subquery's result is read back on every
+execution and substituted as literals (``_bind_subqueries``), and the
+set-operation tail reads its row counts (``UnionPlan``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -71,7 +77,7 @@ from harkdb_tpu_torch.sql.ast_nodes import (
 )
 from harkdb_tpu_torch.sql.parser import parse_sql
 from harkdb_tpu_torch.utils.checks import debug_validate
-from harkdb_tpu_torch.utils.metrics import host_read, span
+from harkdb_tpu_torch.utils.metrics import host_read, inner_plan, span
 
 
 def _next_pow2(n: int) -> int:
@@ -711,7 +717,7 @@ class QueryPlan(StringLowering, NullSemantics):
             if any(isinstance(nd, (SubQuery, InSub)) for nd in nodes):
                 # Comparisons against a subquery defer lowering to first
                 # execution ('x' = (select max(name) ...) is legitimate);
-                # _resolve_subqueries re-validates post-substitution.
+                # _bind_subqueries re-validates post-substitution.
                 continue
             for node in nodes:
                 if isinstance(node, Lit) and isinstance(node.value, str):
@@ -727,7 +733,6 @@ class QueryPlan(StringLowering, NullSemantics):
             self.load_remaps.setdefault(
                 internal.split(".", 1)[0], {}
             )[internal] = lut
-        self._remap_dev_cache: Dict[str, object] = {}
 
         # ---- filter pushdown -------------------------------------------------
         # Split WHERE into top-level AND conjuncts; a conjunct referencing a
@@ -1158,11 +1163,12 @@ class QueryPlan(StringLowering, NullSemantics):
 
         # ---- subqueries ------------------------------------------------------
         # Plan every (self-contained) subquery now so resolution errors
-        # surface at plan time; evaluation happens once, lazily, at first
-        # execution (_resolve_subqueries) — tables are immutable while a
-        # plan is cached, so the substituted literal stays valid.
+        # surface at plan time; each runs on every execution and its value
+        # is substituted into that execution's expressions only
+        # (one_execution): the plan keeps the unbound expressions.
         self._subplans: Dict[object, object] = {}
-        self._subs_resolved = not self._collect_subqueries(tables)
+        self._unbound = (self._expr_state()
+                         if self._collect_subqueries(tables) else None)
 
     # -- EXISTS lowering -------------------------------------------------------
     def _lower_exists(self, e, tables):
@@ -1291,6 +1297,35 @@ class QueryPlan(StringLowering, NullSemantics):
         return a
 
     # -- subqueries ------------------------------------------------------------
+    def _expr_state(self) -> tuple:
+        """The expressions a subquery's value is substituted into."""
+        return (self.final_items, self.pushdown, self.where_residual,
+                self.having, self.order_items, self.agg_arg_cols,
+                self.window_specs)
+
+    def _set_expr_state(self, state: tuple) -> None:
+        (self.final_items, self.pushdown, self.where_residual, self.having,
+         self.order_items, self.agg_arg_cols, self.window_specs) = state
+
+    @contextlib.contextmanager
+    def one_execution(self, tables, execute=None):
+        """The scope of one execution of this plan. On entry every
+        subquery runs (through ``execute(plan)`` when given: the
+        distributed executor runs them over its mesh) and its value is
+        substituted into the plan's expressions; on exit the expressions
+        go back to their unbound form and every derived table drops its
+        materialization. So nothing read from the tables outlives the
+        execution, and a repeated text runs its inner plans again."""
+        try:
+            if self._unbound is not None:
+                self._bind_subqueries(tables, execute)
+            yield
+        finally:
+            if self._unbound is not None:
+                self._set_expr_state(self._unbound)
+            for src in self._derived_by_stmt.values():
+                src.release()
+
     def _iter_exprs(self):
         """Every stored expression tree that may carry subquery nodes —
         including window-spec argument / ORDER BY expressions (WindowFn
@@ -1371,17 +1406,15 @@ class QueryPlan(StringLowering, NullSemantics):
     # instead of an OR-chain; span cap bounds the LUT at 4 MB of bool.
     _IN_LUT_SPAN = 1 << 22
 
-    def _resolve_subqueries(self, tables, execute=None):
-        """First-execution pass: run each subquery plan (through
-        ``execute(plan)`` when given: the distributed executor runs them
-        over its mesh), then substitute scalar results / IN value sets as
-        literals and re-lower (string values translate against the outer
-        column's dictionary here)."""
-        if self._subs_resolved:
-            return
+    def _bind_subqueries(self, tables, execute=None) -> None:
+        """Run each subquery plan (through ``execute(plan)`` when given),
+        then substitute scalar results / IN value sets as literals into
+        the unbound expressions and lower them again (string values
+        translate against the outer column's dictionary here), as this
+        execution's expressions."""
         values: Dict[object, object] = {}      # SubQuery → scalar | np array
         for s, p in self._subplans.items():
-            with span("hark.subquery"):
+            with inner_plan():
                 b = p.execute(tables) if execute is None else execute(p)
                 with host_read("subquery"):
                     n = int(b.n_valid)
@@ -1535,21 +1568,21 @@ class QueryPlan(StringLowering, NullSemantics):
         def lower(e):
             return self._lower_strings(subst(e))
 
-        self.final_items = [(lower(e), n) for e, n in self.final_items]
-        self.pushdown = {b: lower(e) for b, e in self.pushdown.items()}
-        if self.where_residual is not None:
-            self.where_residual = lower(self.where_residual)
-        if self.having is not None:
-            self.having = lower(self.having)
-        self.order_items = [(lower(e), d) for e, d in self.order_items]
-        self.agg_arg_cols = [(i, lower(e)) for i, e in self.agg_arg_cols]
-        self.window_specs = [
-            (out, f,
-             lower(arg) if arg is not None else None,
-             parts, tuple(lower(oe) for oe in oexprs), descs, pp, frame)
-            for out, f, arg, parts, oexprs, descs, pp, frame
-            in self.window_specs
-        ]
+        (items, pushdown, residual, having, order_items, agg_arg_cols,
+         window_specs) = self._unbound
+        self._set_expr_state((
+            [(lower(e), n) for e, n in items],
+            {b: lower(e) for b, e in pushdown.items()},
+            lower(residual) if residual is not None else None,
+            lower(having) if having is not None else None,
+            [(lower(e), d) for e, d in order_items],
+            [(i, lower(e)) for i, e in agg_arg_cols],
+            [(out, f,
+              lower(arg) if arg is not None else None,
+              parts, tuple(lower(oe) for oe in oexprs), descs, pp, frame)
+             for out, f, arg, parts, oexprs, descs, pp, frame
+             in window_specs],
+        ))
         # Deferred string-literal misuse (e.g. a str literal compared only
         # against a numeric subquery result) surfaces here, post-lowering.
         for e in self._iter_exprs():
@@ -1559,7 +1592,6 @@ class QueryPlan(StringLowering, NullSemantics):
                         "String literals are only supported in comparisons, "
                         "IN, BETWEEN and LIKE"
                     )
-        self._subs_resolved = True
 
     def _probe_impl(self, batch: ColumnBatch):
         """On-device (min, max, any) of the group key over live rows passing
@@ -1657,7 +1689,10 @@ class QueryPlan(StringLowering, NullSemantics):
 
     # -- execution ------------------------------------------------------------
     def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
-        self._resolve_subqueries(tables)
+        with self.one_execution(tables):
+            return self._execute(tables)
+
+    def _execute(self, tables: Dict[str, Table]) -> ColumnBatch:
         # Phase A: load + joins (count-then-materialize per join).
         b0 = self.bindings[0][0]
         with span("hark.load"):
@@ -1762,16 +1797,11 @@ class QueryPlan(StringLowering, NullSemantics):
             col = src.column(c)
             lut = remaps.get(internal)
             if lut is not None:
-                # Merged-dictionary code remap: one small-LUT gather, cached
-                # on the plan (tables are immutable while the plan is cached —
-                # the Context invalidates on create/drop_table).
-                cached = self._remap_dev_cache.get(internal)
-                if cached is None:
-                    with host_read("upload"):
-                        lut_t = torch.as_tensor(lut).to(col.device)
-                    cached = lut_t[col.long()]
-                    self._remap_dev_cache[internal] = cached
-                col = cached
+                # Merged-dictionary code remap: one small-LUT gather per
+                # execution.
+                with host_read("upload"):
+                    lut_t = torch.as_tensor(lut).to(col.device)
+                col = lut_t[col.long()]
             out[internal] = col
         return ColumnBatch(out, src.n_valid)
 

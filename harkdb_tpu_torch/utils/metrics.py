@@ -11,6 +11,8 @@ observability story is one stray debug print (``parse.py:57``).
   each blocking read of the card's results, so a trace puts every kernel,
   copy and idle gap down to what the host was doing (``Context.profile``
   and ``--profile`` write them; README lists the names).
+* :func:`inner_plan`: around each run of an inner plan (a derived table's
+  or a subquery's): counts it and opens ``hark.subquery``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ from torch.autograd import profiler as _autograd_profiler
 logger = logging.getLogger("harkdb_tpu_torch")
 
 _NO_SPAN = contextlib.nullcontext()
+
+#: Inner plans run in this process (``inner_plan``); ``Context`` takes the
+#: difference around a query.
+_INNER_PLANS_RUN = 0
 
 
 def span(name: str):
@@ -49,6 +55,21 @@ def host_read(site: str):
     return _NO_SPAN
 
 
+def inner_plan():
+    """The span ``hark.subquery`` around one run of an inner plan: a
+    derived table's (FROM subquery, CTE, view, decorrelated subquery) or a
+    scalar / IN subquery's. Each runs once per execution of its plan, and
+    each run is counted here."""
+    global _INNER_PLANS_RUN
+    _INNER_PLANS_RUN += 1
+    return span("hark.subquery")
+
+
+def inner_plans_run() -> int:
+    """Inner plans run in this process so far."""
+    return _INNER_PLANS_RUN
+
+
 @dataclasses.dataclass
 class QueryMetrics:
     sql: str = ""
@@ -66,6 +87,14 @@ class QueryMetrics:
     rows_out: int = -1
     cached_plan: bool = False
     distributed: bool = False
+    # Inner plans (derived tables, subqueries) the query ran, nested ones
+    # included: each runs on every execution, a cached plan's too.
+    inner_plans_run: int = 0
+    # ``torch.cuda.memory_allocated`` as the query returns, less the bytes
+    # of the Context's resident tables: what the query left on the card
+    # (for ``sql_batch``, the returned result). An allocator statistic read
+    # on the host, no sync. -1 for a Context off the card.
+    held_bytes: int = -1
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

@@ -15,7 +15,8 @@ runs the public primitives (``prims``) against their CPU plain results
 and the top-k LIMIT path against the CPU port; checks that the entry
 points with no device argument put their data on the card, and runs
 chip_smoke's phase 12 (the public ``ops`` and ``kernels`` entry points) at
-2^16 rows.
+2^16 rows; and runs 200 queries of the benchmark's TPC-H power mix at 1%
+of SF 10, holding the card's memory flat.
 Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
@@ -274,6 +275,42 @@ def test_nested_queries_match_cpu_port(cuda):
                                       err_msg=q)
     assert compact.LAUNCHES >= len(NESTED_QUERIES)
     assert segscan.LAUNCHES >= 4
+
+
+def test_power_stream_leaves_nothing_on_the_card(cuda):
+    """200 queries of the benchmark's TPC-H power mix at 1% of SF 10, new
+    literals every query, so most plans are new and Q4's, Q13's, Q17's and
+    Q18's inner plans run on every execution: card memory after the last
+    query is within 64 MB of its value after the first, and no query
+    leaves more than 64 MB beyond the tables (``held_bytes``)."""
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import harkdb_tpu_torch as H
+    from harness import registry
+    from harness.cell import scaled_rows
+    from harness.traffic import Mix
+
+    cfg = registry.config("tpch-sf10")
+    tables = registry.module("gen", cfg["generator"]).make_tables(
+        scaled_rows(cfg, 0.01), 2**31 + 18, cuda)
+    ctx = H.Context(device=cuda)
+    for name, cols in tables.items():
+        ctx.create_table(name, cols)
+    queries = Mix(registry.mix_path("power")).queries(2**31 + 18)
+    allocated, held, inner = [], [], 0
+    for _ in range(200):
+        ctx.sql(next(queries).sql)
+        allocated.append(torch.cuda.memory_allocated(cuda))
+        held.append(ctx.last_metrics.held_bytes)
+        inner += ctx.last_metrics.inner_plans_run
+    assert abs(allocated[-1] - allocated[0]) <= 64 << 20, allocated
+    assert 0 <= min(held) and max(held) <= 64 << 20, held
+    assert inner >= 4 * 200 // 12
 
 
 def test_new_kernels_never_take_plain_version(cuda):

@@ -232,7 +232,8 @@ def test_view_lifecycle_matches_jax():
 
 def test_derived_explain_and_repeat():
     """The explain of a derived scan equals the JAX package's, and a second
-    run reuses the materialization cached on the plan."""
+    run of the cached plan materializes the derived table again: the plan
+    keeps no batch between runs."""
     j, p = _contexts("dctx")
     q = ("select d.k, d.tot, dim.m from "
          "(select k, sum(v) as tot from t group by k) d "
@@ -240,6 +241,182 @@ def test_derived_explain_and_repeat():
     assert p.explain(q) == j.explain(q)
     first = p.sql(q)
     src = next(iter(p._plan(q)._derived.values()))
-    cached = src._batch
-    np.testing.assert_array_equal(p.sql(q), first)
-    assert src._batch is cached
+    assert src._batch is None
+    calls = []
+    orig = src.plan.execute
+    src.plan.execute = lambda tables: calls.append(1) or orig(tables)
+    try:
+        np.testing.assert_array_equal(p.sql(q), first)
+    finally:
+        src.plan.execute = orig
+    assert calls == [1] and src._batch is None
+    assert p.last_metrics.cached_plan and p.last_metrics.inner_plans_run == 1
+
+
+# -- what a cached plan keeps: no result outlives its execution --------------
+
+def held_device_state(obj):
+    """Paths from ``obj`` to every ``ColumnBatch`` or tensor it reaches, a
+    ``Table``'s own resident columns apart."""
+    import types
+
+    import torch
+
+    from harkdb_tpu_torch.columnar.batch import ColumnBatch
+    from harkdb_tpu_torch.columnar.table import Table
+
+    found, seen = [], set()
+    stack = [(obj, "plan")]
+    while stack:
+        o, path = stack.pop()
+        if id(o) in seen or isinstance(o, (Table, str, bytes, int, float,
+                                           np.ndarray, np.generic, type,
+                                           types.ModuleType,
+                                           types.FunctionType,
+                                           types.MethodType)):
+            continue
+        seen.add(id(o))
+        if isinstance(o, (torch.Tensor, ColumnBatch)):
+            found.append(path)
+            continue
+        if isinstance(o, dict):
+            stack += [(v, f"{path}[{k!r}]") for k, v in o.items()]
+        elif isinstance(o, (list, tuple, set, frozenset)):
+            stack += [(v, f"{path}[{i}]") for i, v in enumerate(o)]
+        else:
+            attrs = dict(getattr(o, "__dict__", {}))
+            for cls in type(o).__mro__:
+                for a in getattr(cls, "__slots__", ()):
+                    if hasattr(o, a):
+                        attrs[a] = getattr(o, a)
+            stack += [(v, f"{path}.{a}") for a, v in attrs.items()]
+    return found
+
+
+def _tpch_tables():
+    """Small tables of TPC-H's shape: 200 orders of 1-7 lines, 50 parts."""
+    rng = np.random.default_rng(18)
+    lines = rng.integers(1, 8, 200)
+    okey = np.repeat(np.arange(200, dtype=np.int32), lines)
+    n = okey.shape[0]
+    commit = rng.integers(0, 1000, n).astype(np.int32)
+    return {
+        "lineitem": pd.DataFrame({
+            "l_orderkey": okey,
+            "l_partkey": rng.integers(0, 50, n).astype(np.int32),
+            "l_quantity": rng.integers(1, 51, n).astype(np.int32),
+            "l_extendedprice": rng.integers(100, 10000, n).astype(np.int32),
+            "l_commitdate": commit,
+            "l_receiptdate": commit + rng.integers(-30, 31, n).astype(
+                np.int32),
+        }),
+        "orders": pd.DataFrame({
+            "o_orderkey": np.arange(200, dtype=np.int32),
+            "o_custkey": rng.integers(0, 40, 200).astype(np.int32),
+            "o_orderdate": rng.integers(0, 1000, 200).astype(np.int32),
+            "o_orderpriority": rng.choice(
+                ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                 "5-LOW"], 200),
+        }),
+        "part": pd.DataFrame({
+            "p_partkey": np.arange(50, dtype=np.int32),
+            "p_brand": rng.choice(["Brand#11", "Brand#12", "Brand#23"], 50),
+            "p_container": rng.choice(["SM BOX", "LG CASE"], 50),
+        }),
+    }
+
+
+def q4_text(i: int) -> str:
+    d = 40 * i
+    return ("select o_orderpriority, count(*) as order_count from orders "
+            "join (select l_orderkey from lineitem where l_commitdate < "
+            "l_receiptdate group by l_orderkey) late on o_orderkey = "
+            f"late.l_orderkey where o_orderdate >= {d} and o_orderdate < "
+            f"{d + 90} group by o_orderpriority order by o_orderpriority")
+
+
+def q17_text(i: int) -> str:
+    brand = ["Brand#11", "Brand#12", "Brand#23"][i % 3]
+    box = ["SM BOX", "LG CASE"][i // 3 % 2]
+    return ("select sum(l_extendedprice) / 7.0 as avg_yearly from lineitem "
+            "join part on p_partkey = l_partkey where p_brand = "
+            f"'{brand}' and p_container = '{box}' and l_quantity < "
+            "(select avg(l2.l_quantity) from lineitem l2 where "
+            f"l2.l_partkey = p_partkey) * 0.{i + 2}")
+
+
+def q18_text(i: int) -> str:
+    return ("select o_custkey, o_orderkey, o_orderdate, sum(l_quantity) as "
+            "sum_qty from orders join lineitem on o_orderkey = l_orderkey "
+            "where o_orderkey in (select l_orderkey from lineitem group by "
+            f"l_orderkey having sum(l_quantity) > {150 + 5 * i}) group by "
+            "o_custkey, o_orderkey, o_orderdate order by o_orderdate desc, "
+            "o_orderkey limit 20")
+
+
+#: 40 distinct texts, in a shuffled order; each runs one inner plan.
+TPCH_TEXTS = [f(i) for i in range(13) for f in (q4_text, q17_text, q18_text)
+              ] + [q4_text(13)]
+np.random.default_rng(40).shuffle(TPCH_TEXTS)
+
+
+def assert_nothing_held(ctx):
+    held = [path for plan in ctx._plan_cache.values()
+            for path in held_device_state(plan)]
+    assert not held, held[:5]
+
+
+@pytest.fixture(scope="module")
+def tpch_pair():
+    return make_pair(_tpch_tables())
+
+
+@pytest.mark.parametrize("shape", ["q4", "q17"])
+def test_derived_table_lives_for_one_execution(tpch_pair, shape):
+    """Q4's derived table and Q17's decorrelated inner plan run on every
+    execution, a repeated text's too, and no cached plan keeps a batch or a
+    tensor once its query returns; every answer equals the JAX package's."""
+    j, p = tpch_pair
+    text = {"q4": q4_text, "q17": q17_text}[shape]
+    for i in range(13):
+        assert_query_same(j, p, text(i))     # sql, then sql_df: one repeat
+        assert p.last_metrics.cached_plan
+        assert p.last_metrics.inner_plans_run == 1
+        assert_nothing_held(p)
+    p.sql(text(0))
+    assert p.last_metrics.inner_plans_run == 1
+
+
+def test_cte_named_twice_runs_once_per_execution():
+    """A CTE named twice has one materialization within an execution, and
+    runs again on the next execution of the cached plan."""
+    j, p = make_pair(_tctx())
+    q = ("with a as (select k, sum(v) as s from t group by k) "
+         "select x.k, x.s, y.s as s2 from a x join a y on x.k = y.k "
+         "order by x.k")
+    for _ in range(3):
+        assert_query_same(j, p, q)
+        assert p.last_metrics.inner_plans_run == 1
+    assert_nothing_held(p)
+
+
+def test_plan_cache_stays_at_its_bound(monkeypatch):
+    """40 distinct texts of Q4's, Q17's and Q18's shapes on one Context: the
+    plan cache keeps its most recently used plans up to its bound, none of
+    them holding a result, and every answer equals the JAX package's."""
+    import harkdb_tpu_torch.api as api
+
+    assert api.PLAN_CACHE_ENTRIES == 256
+    monkeypatch.setattr(api, "PLAN_CACHE_ENTRIES", 16)
+    j, p = make_pair(_tpch_tables())
+    for i, q in enumerate(TPCH_TEXTS):
+        _assert_same(j.sql(q), p.sql(q), q)
+        assert p.last_metrics.inner_plans_run == 1
+        assert len(p._plan_cache) == min(i + 1, 16)
+    assert [k[0] for k in p._plan_cache] == TPCH_TEXTS[-16:]
+    assert_nothing_held(p)
+    p.sql(TPCH_TEXTS[-16])                  # a hit moves to the newest end
+    assert next(reversed(p._plan_cache))[0] == TPCH_TEXTS[-16]
+    p.sql(TPCH_TEXTS[0])                    # a miss drops the oldest
+    assert len(p._plan_cache) == 16
+    assert TPCH_TEXTS[-15] not in [k[0] for k in p._plan_cache]

@@ -16,7 +16,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from test_torch_derived import assert_error_same, assert_query_same, make_pair
+from harkdb_tpu_torch.sql.ast_nodes import InSub, SubQuery, walk
+from test_torch_derived import (  # noqa: F401  (tpch_pair: a fixture)
+    assert_error_same, assert_nothing_held, assert_query_same, make_pair,
+    q18_text, tpch_pair,
+)
 
 
 def _qctx():
@@ -244,22 +248,31 @@ def test_subquery_error_matches_jax(tables, query):
     assert_error_same(j, p, query)
 
 
+def _unbound(plan) -> bool:
+    """The plan's expressions still hold their subquery nodes: no value
+    substituted outlives an execution."""
+    return any(isinstance(n, (SubQuery, InSub))
+               for e in plan._iter_exprs() for n in walk(e))
+
+
 def test_table_change_invalidates_subquery():
-    """tests/test_subqueries.py test_table_change_invalidates: the cached
-    plan's substituted literals go with the plan when a table changes."""
+    """tests/test_subqueries.py test_table_change_invalidates: the answer
+    follows a changed table; the cached plan keeps its subquery unbound
+    between executions, so no substituted literal survives the change."""
     j, p = make_pair(_qctx())
     q = "select count(*) as n from t where k in (select key from hot)"
     assert_query_same(j, p, q)
     assert p.last_metrics.cached_plan
+    assert _unbound(p._plan(q))
     for c in (j, p):
         c.create_table("hot", pd.DataFrame({"key": np.int32([0])}))
     assert_query_same(j, p, q)
-    assert p._plan(q)._subs_resolved
+    assert _unbound(p._plan(q))
 
 
 def test_subquery_readback_once_per_plan():
-    """Each subquery runs once per plan: the literal is substituted at the
-    first execution and the sub-plan is not run again."""
+    """Each subquery runs once per execution, a cached plan's too: its
+    value is read back once and substituted into that execution only."""
     j, p = make_pair(_qctx())
     q = "select k, v from t where v > (select avg(v) from t)"
     assert_query_same(j, p, q)
@@ -272,4 +285,28 @@ def test_subquery_readback_once_per_plan():
         p.sql(q)
     finally:
         sub.execute = orig
-    assert not calls
+    assert calls == [1]
+    assert p.last_metrics.cached_plan and p.last_metrics.inner_plans_run == 1
+    assert _unbound(plan)
+
+
+@pytest.mark.parametrize("shape", ["q18", "scalar"])
+def test_subquery_lives_for_one_execution(tpch_pair, shape):
+    """Q18's IN subquery (a grouped HAVING over lineitem) and a scalar
+    subquery run on every execution, a repeated text's too, and no cached
+    plan keeps a batch, a tensor or a substituted value once its query
+    returns; every answer equals the JAX package's."""
+    j, p = tpch_pair
+    text = {"q18": q18_text,
+            "scalar": lambda i: (
+                "select count(*) as n from lineitem where l_quantity > "
+                f"(select avg(l_quantity) from lineitem where l_partkey = "
+                f"{i}) and l_partkey < {i + 20}")}[shape]
+    for i in range(13):
+        assert_query_same(j, p, text(i))     # sql, then sql_df: one repeat
+        assert p.last_metrics.cached_plan
+        assert p.last_metrics.inner_plans_run == 1
+        assert_nothing_held(p)
+        assert _unbound(p._plan(text(i)))
+    p.sql(text(0))
+    assert p.last_metrics.inner_plans_run == 1
