@@ -104,7 +104,15 @@ Phases, each printing its results on lines of its own:
      same call on the CPU (the plain versions) and to a numpy oracle, bit
      for bit, each raising the counts of the kernels it needs, no plain
      version run on the card, each timed (CUDA events, median of 5) and
-     the entry step profiled (device-busy share).
+     the entry step profiled (device-busy share);
+ 13. the radix pair sort under the sorted operators (``ops/sort.py``,
+     ``csrc/radix_sort.cu``): ``sort_pairs`` on one 32-bit and one 40-bit
+     word and ``lexsort_permutation`` over two words, at 0, 1, 4095, 4097,
+     2^20 + 3 and 2^25 rows, each equal to its plain twin on the CPU bit
+     for bit; then each at 120,000,000 rows timed by CUDA events beside
+     its bound (histogram read plus digit passes of key and value, read
+     and written, at 3.35 TB/s) and ``torch.sort`` over the same words
+     widened to int64 (the port's sort before), whose order it equals.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -2221,6 +2229,7 @@ PLAIN_VERSIONS = (
     ("kernels.expand", "expand_fills_reference"),
     ("prims.segmented", "doubling_segmented_scan"),
     ("prims.segmented", "_pair_scan"),
+    ("ops.sort", "sort_pairs_reference"),
 )
 
 
@@ -2815,6 +2824,179 @@ def phase_public_ops(torch, H, counters, n: int = N_MAIN,
     return report
 
 
+# -- phase 13: the radix pair sort under the sorted operators ----------------
+
+# SSB SF 20's lineorder: the rows of a join's concat sort of the fact side.
+PAIR_SORT_N = 120_000_000
+PAIR_SORT_EDGE_N = (0, 1, 4095, 4097, (1 << 20) + 3, 1 << 25)
+# One 32-bit word (an int32 key), one 40-bit word (an int32 key and a uint8
+# NULL code, as the join packs them) and two 32-bit words (two int32 keys).
+PAIR_SORT_CLASSES = ("word32", "word40", "two_words")
+
+
+def pair_sort_inputs(torch, n: int, cls: str, seed: int, dev):
+    """``(keys, values)`` on ``dev`` for a word class: int32 keys over all
+    32 bits, half of them folded to 16 values (ties), INT32_MIN and
+    INT32_MAX among them; for ``word40`` a uint8 code of 0-2 after the key;
+    int32 values over all 32 bits."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def int32(m):
+        return torch.randint(-2**31, 2**31, (m,), dtype=torch.int32,
+                             device=dev, generator=g)
+
+    def key():
+        k = int32(n)
+        k = torch.where(torch.rand(n, device=dev, generator=g) < 0.5,
+                        k & 15, k)
+        k[: min(n, 2)] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32,
+                                      device=dev)[: min(n, 2)]
+        return k
+
+    keys = [key()]
+    if cls == "word40":
+        keys.append(torch.randint(0, 3, (n,), dtype=torch.uint8, device=dev,
+                                  generator=g))
+    elif cls == "two_words":
+        keys.append(key())
+    return keys, int32(n)
+
+
+def check_pair_sort(torch, S, dev, n: int, cls: str, seed: int) -> None:
+    """The card's pair sort against its plain twin on the CPU, bit for bit
+    in sorted words and values: ``sort_pairs`` on the class's one word, or
+    ``lexsort_permutation`` over two words (as the permutation, and as the
+    last word with values carried). Raises on any difference."""
+    keys, values = pair_sort_inputs(torch, n, cls, seed, dev)
+    cpu_keys = [k.cpu() for k in keys]
+    words = S.order_words(keys)
+    want_bits = {"word32": [32], "word40": [40], "two_words": [32, 32]}[cls]
+    if [b for _w, b in words] != want_bits:
+        raise AssertionError(f"{cls}: words of {[b for _w, b in words]} bits")
+    before = S.LAUNCHES
+    if cls == "two_words":
+        got = [S.lexsort_permutation(keys)]
+        got += S.lexsort_permutation(keys, values.clone())
+        want = [S.lexsort_permutation(cpu_keys)]
+        want += S.lexsort_permutation(cpu_keys, values.cpu())
+    else:
+        (w, bits), = words
+        got = S.sort_pairs(w.clone(), bits, values.clone())
+        want = S.sort_pairs_reference(w.cpu(), bits, values.cpu())
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"pair sort {cls} at {n:,} rows: output "
+                                 f"{i} differs from the plain twin")
+    if n and S.LAUNCHES == before:
+        raise AssertionError(f"pair sort {cls} at {n:,} rows: no launch")
+
+
+def pair_sort_bytes(n: int, key_bytes: int, bits: int) -> int:
+    """The least bytes a stable LSD radix sort of n keys with 4-byte values
+    moves: one read of the keys for the digit histograms, then per 8-bit
+    digit pass one read and one write of every key and value."""
+    passes = -(-bits // 8)
+    return n * key_bytes + passes * n * (key_bytes + 4) * 2
+
+
+def _fresh_event_ms(torch, fn, inputs, reps=5):
+    """Median CUDA-event ms of ``fn(*copies)`` over ``reps`` calls after
+    one warm-up, each on fresh copies of ``inputs`` made before its events
+    (the sort hands its inputs over), with an empty queue before each."""
+    times = []
+    for i in range(reps + 1):
+        copies = [x.clone() for x in inputs]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*copies)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+        del copies
+    return statistics.median(times), times
+
+
+def _library_lexsort(torch, words64):
+    """The sort as the port ran it before the pair sort: one stable
+    ``torch.sort`` per int64 word, least significant first, composing
+    int64 permutations."""
+    perm = None
+    for w in words64:
+        if perm is not None:
+            w = w[perm]
+        order = torch.sort(w, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def phase_pair_sort(torch, dev, n: int = PAIR_SORT_N) -> list:
+    """Phase 13: the pair sort against its plain twin at the edge lengths,
+    then each word class at ``n`` rows: the sort alone (``sort_pairs``; for
+    two words ``lexsort_permutation``, its gather and both sorts), the
+    whole ``lexsort_permutation`` from the keys, the bytes the sort needs at
+    the card's rate, and ``torch.sort`` over the same words widened to
+    int64 (the port's sort before) as the library yardstick, whose order
+    the pair sort must equal."""
+    from harkdb_tpu_torch.ops import sort as S
+
+    for cls in PAIR_SORT_CLASSES:
+        for m in PAIR_SORT_EDGE_N:
+            check_pair_sort(torch, S, dev, m, cls, seed=m + 7)
+    log(f"phase 13 pair sort: {', '.join(PAIR_SORT_CLASSES)} at "
+        f"{PAIR_SORT_EDGE_N} rows: bit-exact against the plain twin")
+    rows = []
+    for cls in PAIR_SORT_CLASSES:
+        keys, values = pair_sort_inputs(torch, n, cls, 13, dev)
+        words = S.order_words(keys)
+        if cls == "two_words":
+            ms, times = median_event_ms(
+                torch, lambda: S.lexsort_permutation(keys))
+            lex_ms = ms
+            # both sorts, the second word's gather and the index fill
+            nbytes = sum(pair_sort_bytes(n, w.element_size(), b)
+                         for w, b in words) + 12 * n + 4 * n
+            got = S.lexsort_permutation(keys)
+        else:
+            (w, bits), = words
+            ms, times = _fresh_event_ms(
+                torch, lambda a, b: S.sort_pairs(a, bits, b), [w, values])
+            lex_ms, _ = _fresh_event_ms(
+                torch, lambda v: S.lexsort_permutation(keys, v), [values])
+            nbytes = pair_sort_bytes(n, w.element_size(), bits)
+            got = S.lexsort_permutation(keys)
+        words64 = [(w.to(torch.int64) & 0xFFFFFFFF) if w.dtype == torch.int32
+                   else w for w, _b in words]
+        lib_ms, lib_times = median_event_ms(
+            torch, lambda: _library_lexsort(torch, words64))
+        same = torch.equal(got.to(torch.int64), _library_lexsort(torch,
+                                                                 words64))
+        if not same:
+            raise AssertionError(f"pair sort {cls} at {n:,} rows: order "
+                                 f"differs from torch.sort's")
+        bound = nbytes / HBM_BYTES_PER_MS
+        rows.append({
+            "name": f"sort_pairs_{cls}", "route": "cub",
+            "source": "harkdb_tpu_torch/csrc/radix_sort.cu", "rows": n,
+            "bits": [b for _w, b in words], "ms": ms, "times": times,
+            "lexsort_ms": lex_ms, "bytes": nbytes, "bound_ms": bound,
+            "bound_by": "bytes", "bound_share": bound / ms,
+            "library_ms": lib_ms, "library_times": lib_times,
+            "library": "torch.sort over int64 words, stable",
+            "equal_to_library": same})
+        log(f"phase 13 pair sort {cls} at {n:,} rows, words of "
+            f"{[b for _w, b in words]} bits: {ms:.3f} ms (whole lexsort "
+            f"{lex_ms:.3f} ms), bound {bound:.3f} ms ({bound / ms:.3f} of "
+            f"it), torch.sort over int64 words {lib_ms:.3f} ms")
+        del keys, values, words, words64, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
     """Bytes kernel A's work must move: the mask, each 32-byte sector (8
     rows) of each column that holds a kept row, and each kept word out."""
@@ -3028,6 +3210,9 @@ def main() -> int:
     # -- phase 12: the public ops and kernel C's entry points at full width --
     phase_public_ops(torch, H, counters)
 
+    # -- phase 13: the radix pair sort under the sorted operators ------------
+    pair_sort = phase_pair_sort(torch, dev)
+
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}
     a_ms, a_host = time_cuda(
@@ -3189,7 +3374,7 @@ def main() -> int:
                      "star_join": star_launches, "tpch_q3_sf1": q3_launches,
                      **nested_launches},
         "dense_vs_sort_ms": vs_sort, "debug_checks_ms": debug_ms,
-        "csv_cli": csv_cli, "mesh": mesh}
+        "csv_cli": csv_cli, "mesh": mesh, "pair_sort": pair_sort}
     # Each row's launches on every rank of phase 10 (4 gloo ranks): over
     # all its queries for a kernel's main row, in the query of the row's
     # shape for D (the star join, Q3); C at span 1 and 16384 x 3 runs in no

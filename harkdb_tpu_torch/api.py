@@ -34,7 +34,7 @@ from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.utils.metrics import (
-    QueryMetrics, StageTimer, host_read, inner_plans_run, span,
+    QueryMetrics, StageTimer, host_read, inner_plans_run, sorts_counted, span,
 )
 
 #: Plans a Context keeps, the least recently used dropped first: a bound on
@@ -163,7 +163,7 @@ class Context:
             plan = self._plan(sql_statement)
         m.plan_ms = t.ms
         m.distributed = self.distributed
-        inner0 = inner_plans_run()
+        inner0, sorts0 = inner_plans_run(), sorts_counted()
         t0 = time.perf_counter()
         if self.distributed:
             # No retry: one rank retrying alone would enter collectives
@@ -180,6 +180,8 @@ class Context:
                 out = plan.execute(self.tables)
         m.execute_ms = (time.perf_counter() - t0) * 1e3
         m.inner_plans_run = inner_plans_run() - inner0
+        m.sort_rows, m.sort_row_bits = (
+            a - b for a, b in zip(sorts_counted(), sorts0))
         self.last_metrics = m
         self._last_plan = plan          # sql_df reads output_dicts from here
         return out, m, t0

@@ -56,6 +56,12 @@ _SIGNATURES = {
         [_P, _P, _P, _I64, _I32, ctypes.c_int, ctypes.c_int, _P,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     ),
+    "harkdb_radix_sort_temp_bytes": (_I64, [_I64, ctypes.c_int, ctypes.c_int]),
+    "harkdb_radix_sort_pairs": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _I64,
+         ctypes.POINTER(ctypes.c_int), _P],
+    ),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -14,9 +14,11 @@ The algorithm is the JAX package's, run on torch tensors:
      with a stable sort (``ops.sort.lexsort_permutation``), so rights
      precede lefts within every key run. Per sorted-left row, the match
      count is a cumsum difference and the first match ``lo`` a cummax-filled
-     run base. Only the tagged original row index rides the sort; the
-     per-side splits are stable compactions (kernel A on a card) of that
-     index and the run arithmetic. The carried columns do not move here.
+     run base. Only the tagged original row index rides the sort, as the
+     radix sort's int32 value where the keys are integers packing into one
+     order word (whose runs are then the key runs); the per-side splits
+     are stable compactions (kernel A on a card) of that index and the run
+     arithmetic. The carried columns do not move here.
      Every join total comes out of this one pass; the planner reads the one
      it needs back to size the output (count-then-materialize).
   2. **Materialization** (:func:`join_batches` / :func:`join_indices`):
@@ -39,7 +41,9 @@ import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.kernels.expand import expand_fills
-from harkdb_tpu_torch.ops.sort import _pad_to_max, lexsort_permutation
+from harkdb_tpu_torch.ops.sort import (
+    _pad_to_max, lexsort_permutation, one_integer_word,
+)
 from harkdb_tpu_torch.prims.compaction import compact_arrays
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 from harkdb_tpu_torch.utils.metrics import span
@@ -156,9 +160,18 @@ def compute_join_ranges(
     r_tag = r_idx | torch.where(r_idx >= n_r, pad_bit, zero)
     orig_tagged = torch.cat([r_tag, l_tag])
 
-    perm = lexsort_permutation(keys)
-    skeys = [k[perm] for k in keys]
-    stag = orig_tagged[perm]
+    if one_integer_word(keys):
+        # The packing is a bijection: equal words are equal key tuples, so
+        # the run starts read off the sorted word, and the tag rides the
+        # sort as its value.
+        sword, stag = lexsort_permutation(keys, orig_tagged)
+        skeys = [sword]
+    else:
+        # Float keys (each NaN a run of its own) or several words: the run
+        # starts per operand, gathered through the permutation.
+        perm = lexsort_permutation(keys)
+        skeys = [k[perm] for k in keys]
+        stag = orig_tagged[perm]
     # side code from the tag bits: 0 = live right, 1 = live left, else pad.
     side_code = (stag >> 30) & 3
     sorig = stag & _ORIG_MASK

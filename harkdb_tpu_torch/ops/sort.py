@@ -4,11 +4,15 @@ Counterpart of ``harkdb_tpu.ops.sort``. JAX sorts several operands at once
 (``lax.sort(num_keys=…, is_stable=True)``); torch sorts one key. The
 multi-key stable sort is built here as :func:`lexsort_permutation`: every
 key maps to a non-negative integer of known width whose order is the key's
-order under ``lax.sort``, adjacent keys pack into int64 words of at most
-63 bits, and one stable ``torch.sort`` per word runs from the least
-significant word to the most significant, carrying a permutation. Payload
-columns then move with one gather each. Two int32 keys — a drop flag and a
-group key, or a drop flag and an ORDER BY key — fit one word: one sort.
+order under ``lax.sort``, adjacent keys pack into words of at most 63 bits
+(:func:`order_words`), and one stable radix sort per word
+(:func:`sort_pairs`) runs from the least significant word to the most
+significant, over that word's own bits, carrying an int32 permutation. A
+word of at most 32 bits sorts as a 4-byte word: a lone int32 key is its own
+bits with the sign bit flipped. Payload columns then move with one gather
+each; a caller with one int32 payload (the join's tagged row index) hands
+it to the sort to carry instead. Two int32 keys, a drop flag and a key, or
+a drop flag and an ORDER BY key, fit one word: one sort.
 
 Engine conventions honored:
   * padded batches — padding rows always sort to the back, regardless of the
@@ -21,13 +25,24 @@ Engine conventions honored:
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
+from harkdb_tpu_torch.kernels import _lib
+from harkdb_tpu_torch.utils.metrics import count_sort
 
-_WORD_BITS = 63          # packed words stay non-negative int64
+_WORD_BITS = 63          # a word of several keys stays a non-negative int64
+
+_KEY_BITS = {torch.bool: 1, torch.int8: 8, torch.uint8: 8, torch.int16: 16,
+             torch.int32: 32, torch.float32: 32, torch.int64: 64,
+             torch.float64: 64}
+
+#: Number of pair sorts :func:`sort_pairs` ran in the card's library in this
+#: process: one per call on a CUDA tensor with rows.
+LAUNCHES = 0
 
 
 def _descending_transform(key: torch.Tensor) -> torch.Tensor:
@@ -58,63 +73,178 @@ def _pad_to_max(key: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
                        torch.full((), hi, dtype=key.dtype, device=key.device))
 
 
-def _order_bits(key: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """``(u, bits)``: int64 ``u`` in [0, 2**bits) ordered like ``key`` under
-    ``lax.sort``; ``bits`` 64 means "sort as its own word"."""
+def _key_bits(dtype: torch.dtype) -> int:
+    if dtype not in _KEY_BITS:
+        raise TypeError(f"unsupported sort key dtype {dtype}")
+    return _KEY_BITS[dtype]
+
+
+def _order_bits(key: torch.Tensor, dtype: torch.dtype = torch.int64
+                ) -> Tuple[torch.Tensor, int]:
+    """``(u, bits)``: ``u`` of ``dtype`` (int64, or int32 for a key of at
+    most 32 bits) whose bits, read as an unsigned number in [0, 2**bits),
+    order like ``key`` under ``lax.sort``. Always a new tensor."""
     dt = key.dtype
+    bits = _key_bits(dt)
     if dt == torch.bool:
-        return key.to(torch.int64), 1
-    if dt in (torch.int8, torch.int16, torch.int32, torch.uint8):
-        info = torch.iinfo(dt)
-        return key.to(torch.int64) - info.min, (info.max - info.min).bit_length()
+        return key.to(dtype), 1
     if dt.is_floating_point:
         # lax.sort's float order: -0.0 == 0.0, every NaN one value after +inf.
         key = torch.where(key == 0, torch.zeros_like(key), key)
         key = torch.where(torch.isnan(key),
                           torch.full_like(key, float("nan")), key)
-    if dt == torch.float32:
-        b = key.view(torch.int32).to(torch.int64)
-        u = b & 0xFFFFFFFF
-        return torch.where(b < 0, 0xFFFFFFFF - u, u + 0x80000000), 32
-    if dt == torch.float64:
-        b = key.view(torch.int64)
-        # monotone signed view: negative floats reverse their magnitude bits
-        return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b), 64
-    if dt == torch.int64:
-        return key, 64
-    raise TypeError(f"unsupported sort key dtype {dt}")
+        b = key.view(torch.int32 if dt == torch.float32 else torch.int64)
+        # negative floats reverse every bit, the others flip the sign bit
+        u = torch.where(b < 0, ~b, b ^ torch.iinfo(b.dtype).min)
+        if u.dtype != dtype:
+            u = u.to(dtype) & 0xFFFFFFFF
+        return u, bits
+    if dt == dtype:                     # int32 or int64 in its own width
+        return key ^ torch.iinfo(dt).min, bits       # the sign bit flipped
+    return key.to(dtype) - torch.iinfo(dt).min, bits
 
 
-def lexsort_permutation(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable lexicographic sort permutation (``keys[0]`` most significant):
-    ``perm[i]`` = source row of output row i, ties in input order."""
-    words: List[torch.Tensor] = []       # least significant first
-    acc, acc_bits = None, 0
+def _word_groups(keys: Sequence[torch.Tensor]) -> List[list]:
+    """The keys of each order word and its bits, least significant word
+    first, each word's keys least significant first; from dtypes alone."""
+    groups: List[list] = []             # [keys, bits] per word
     for key in reversed(list(keys)):
-        u, bits = _order_bits(key)
-        if bits == 64:
-            if acc is not None:
-                words.append(acc)
-                acc, acc_bits = None, 0
-            words.append(u)
+        b = _key_bits(key.dtype)
+        if not groups or groups[-1][1] + b > _WORD_BITS:
+            groups.append([[], 0])
+        groups[-1][0].append(key)
+        groups[-1][1] += b
+    return groups
+
+
+def order_words(keys: Sequence[torch.Tensor]
+                ) -> List[Tuple[torch.Tensor, int]]:
+    """``(word, bits)`` per order word, least significant first: the word's
+    bits, read as an unsigned number in [0, 2**bits), order like its keys'
+    tuple under ``lax.sort``, and equal words are equal tuples but for
+    floats (-0.0 and 0.0, the NaNs). int32 for at most 32 bits, else int64:
+    one key of 8 bytes, or adjacent keys packed in at most 63 bits."""
+    words = []
+    for members, bits in _word_groups(keys):
+        if len(members) == 1:
+            words.append(_order_bits(
+                members[0], torch.int32 if bits <= 32 else torch.int64))
             continue
-        if acc is not None and acc_bits + bits > _WORD_BITS:
-            words.append(acc)
-            acc, acc_bits = None, 0
-        acc = u if acc is None else acc | (u << acc_bits)
-        acc_bits += bits
-    if acc is not None:
-        words.append(acc)
+        acc, at = None, 0
+        for key in members:
+            u, b = _order_bits(key)
+            acc = u if acc is None else acc | (u << at)
+            at += b
+        # int64 to int32 keeps the low 32 bits (two's complement)
+        words.append((acc.to(torch.int32) if bits <= 32 else acc, bits))
+    return words
+
+
+def one_integer_word(keys: Sequence[torch.Tensor]) -> bool:
+    """Whether the keys are integers (bool included) that share one order
+    word: then the sorted word's runs are the key tuple's runs."""
+    return (len(_word_groups(keys)) == 1
+            and not any(k.dtype.is_floating_point for k in keys))
+
+
+def _check_pairs(word: torch.Tensor, bits: int, values: torch.Tensor) -> None:
+    if word.dim() != 1 or word.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"word must be a 1-D int32 or int64 tensor, got "
+                         f"{word.dtype} of shape {tuple(word.shape)}")
+    if not 1 <= bits <= 8 * word.element_size():
+        raise ValueError(f"bits {bits} outside [1, {8 * word.element_size()}]"
+                         f" for a {word.dtype} word")
+    if values.dtype != torch.int32 or values.shape != word.shape:
+        raise ValueError(f"values must be int32 of shape {tuple(word.shape)}"
+                         f", got {values.dtype} of {tuple(values.shape)}")
+    if values.device != word.device:
+        raise ValueError("word and values must share a device")
+
+
+def sort_pairs(word: torch.Tensor, bits: int, values: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable ascending sort of ``word`` on its low ``bits`` bits, read as
+    an unsigned number, with the int32 ``values`` moving along: returns
+    ``(sorted_word, sorted_values)``.
+
+    ``word`` is int32 (``bits`` <= 32) or int64 (<= 64). A CUDA tensor is
+    sorted by the card's library (``csrc/radix_sort.cu``: CUB's onesweep
+    over ``bits`` bits, no synchronisation); the word and values become one
+    half of its double buffer, so the caller hands them over and their
+    contents afterwards are unspecified. A CPU tensor takes
+    :func:`sort_pairs_reference`; any other device raises. Counts the rows
+    and bits sorted (``utils.metrics.count_sort``).
+    """
+    _check_pairs(word, bits, values)
+    dev = word.device
+    n = word.shape[0]
+    count_sort(n, bits)
+    if dev.type == "cpu":
+        return sort_pairs_reference(word, bits, values)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_pairs runs on CUDA or CPU, not {dev}")
+    if n == 0:
+        return word, values
+    global LAUNCHES
+    lib = _lib.library()
+    key_bytes = word.element_size()
+    temp_bytes = lib.harkdb_radix_sort_temp_bytes(n, key_bytes, bits)
+    if temp_bytes < 0:
+        _lib.check(-temp_bytes, "radix sort temp size")
+    word, values = word.contiguous(), values.contiguous()
+    word_alt, values_alt = torch.empty_like(word), torch.empty_like(values)
+    temp = torch.empty(temp_bytes, dtype=torch.uint8, device=dev)
+    selector = (ctypes.c_int * 2)()
+    _lib.check(lib.harkdb_radix_sort_pairs(
+        word.data_ptr(), word_alt.data_ptr(), values.data_ptr(),
+        values_alt.data_ptr(), n, key_bytes, bits, temp.data_ptr(),
+        temp_bytes, selector, _lib.stream_handle(dev),
+    ), "radix sort")
+    LAUNCHES += 1
+    return ((word, word_alt)[selector[0]], (values, values_alt)[selector[1]])
+
+
+def sort_pairs_reference(word: torch.Tensor, bits: int, values: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`sort_pairs`: one stable
+    ``torch.sort`` of the word's low ``bits`` bits as an unsigned number
+    (a full-width word with its sign bit flipped, so that signed order is
+    unsigned order), then the word and values gathered through its order.
+    Leaves its inputs as they are."""
+    _check_pairs(word, bits, values)
+    if bits == 8 * word.element_size():
+        order_key = word ^ torch.iinfo(word.dtype).min
+    else:
+        order_key = word & ((1 << bits) - 1)
+    order = torch.sort(order_key, stable=True).indices
+    return word.index_select(0, order), values.index_select(0, order)
+
+
+def lexsort_permutation(keys: Sequence[torch.Tensor],
+                        values: Optional[torch.Tensor] = None):
+    """Stable lexicographic sort (``keys[0]`` most significant), ties in
+    input order.
+
+    Without ``values``: the int32 permutation, ``perm[i]`` = source row of
+    output row i. With ``values`` (int32, one a row): ``(sorted_word,
+    sorted_values)``, the most significant order word (:func:`order_words`)
+    in sorted order and ``values`` permuted; where the keys make one word,
+    ``values`` rides the sort itself and is handed over as
+    :func:`sort_pairs` says.
+    """
+    words = order_words(keys)
     n = keys[0].shape[0]
-    perm = None
-    for w in words:
-        if perm is not None:
-            w = w[perm]
-        order = torch.sort(w, stable=True).indices
-        perm = order if perm is None else perm[order]
-    if perm is None:
-        perm = torch.arange(n, device=keys[0].device)
-    return perm
+    rides = values is not None and len(words) == 1
+    carry = (values if rides else
+             torch.arange(n, dtype=torch.int32, device=keys[0].device))
+    sword = None
+    for i, (w, bits) in enumerate(words):
+        if i:
+            w = w.index_select(0, carry)
+        sword, carry = sort_pairs(w, bits, carry)
+    if values is None:
+        return carry
+    return sword, carry if rides else values.index_select(0, carry)
 
 
 def sort_permutation(
@@ -139,7 +269,7 @@ def sort_permutation(
             k = _descending_transform(k)
         eff.append(_pad_to_max(k, n_valid))
     perm = lexsort_permutation(eff)
-    return perm.to(torch.int32), [k[perm] for k in eff]
+    return perm, [k[perm] for k in eff]
 
 
 def sort_batch(

@@ -13,6 +13,8 @@ observability story is one stray debug print (``parse.py:57``).
   and ``--profile`` write them; README lists the names).
 * :func:`inner_plan`: around each run of an inner plan (a derived table's
   or a subquery's): counts it and opens ``hark.subquery``.
+* :func:`count_sort`: the rows and bits of every order word sorted
+  (``ops.sort.sort_pairs``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -34,6 +36,12 @@ _NO_SPAN = contextlib.nullcontext()
 #: Inner plans run in this process (``inner_plan``); ``Context`` takes the
 #: difference around a query.
 _INNER_PLANS_RUN = 0
+
+#: Rows of every order word sorted in this process, and those rows times the
+#: bits each word's sort covered (``count_sort``); ``Context`` takes the
+#: differences around a query.
+_SORT_ROWS = 0
+_SORT_ROW_BITS = 0
 
 
 def span(name: str):
@@ -70,6 +78,20 @@ def inner_plans_run() -> int:
     return _INNER_PLANS_RUN
 
 
+def count_sort(rows: int, bits: int) -> None:
+    """Count one sort of ``rows`` order words over ``bits`` bits (host
+    ints: no sync)."""
+    global _SORT_ROWS, _SORT_ROW_BITS
+    _SORT_ROWS += rows
+    _SORT_ROW_BITS += rows * bits
+
+
+def sorts_counted() -> Tuple[int, int]:
+    """``(rows, rows x bits)`` of the order words sorted in this process so
+    far."""
+    return _SORT_ROWS, _SORT_ROW_BITS
+
+
 @dataclasses.dataclass
 class QueryMetrics:
     sql: str = ""
@@ -90,6 +112,11 @@ class QueryMetrics:
     # Inner plans (derived tables, subqueries) the query ran, nested ones
     # included: each runs on every execution, a cached plan's too.
     inner_plans_run: int = 0
+    # Rows of the order words the query sorted (``ops.sort.sort_pairs``:
+    # joins, group-bys, ORDER BY and the other sorted operators), and those
+    # rows times the bits each sort covered.
+    sort_rows: int = 0
+    sort_row_bits: int = 0
     # ``torch.cuda.memory_allocated`` as the query returns, less the bytes
     # of the Context's resident tables: what the query left on the card
     # (for ``sql_batch``, the returned result). An allocator statistic read

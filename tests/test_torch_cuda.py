@@ -493,3 +493,98 @@ def test_public_ops_on_card_match_cpu(cuda):
 
     chip_smoke.phase_public_ops(torch, H, _counters(), n=1 << 16,
                                 n_keys=1 << 12)
+
+
+@pytest.mark.parametrize("cls", ["word32", "word40", "two_words"])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4097, (1 << 20) + 3, 1 << 25])
+def test_pair_sort_on_card_equals_plain_twin(cuda, n, cls):
+    """The library's radix pair sort (``ops/sort.sort_pairs``) against its
+    plain twin on the CPU, bit for bit in sorted words and values: one
+    32-bit word, one 40-bit word, and two words through
+    ``lexsort_permutation``."""
+    import chip_smoke
+    from harkdb_tpu_torch.ops import sort as S
+
+    chip_smoke.check_pair_sort(torch, S, cuda, n, cls, seed=n + 7)
+
+
+def test_lexsort_on_card_never_calls_torch_sort(cuda, monkeypatch):
+    """On a CUDA tensor every word goes through the library's pair sort;
+    ``torch.sort`` (the plain twin's) is never called."""
+    from harkdb_tpu_torch.ops import sort as S
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    k = torch.randint(-2**31, 2**31, (5000,), dtype=torch.int32,
+                      device=cuda, generator=g)
+    f = k.to(torch.float32)
+    flag = k > 0
+    wide = k.to(torch.int64) << 20
+
+    def refuse(*args, **kw):
+        raise AssertionError("torch.sort ran on the card's sort path")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    before = S.LAUNCHES
+    for keys in ([k], [flag, k], [f], [wide], [k, k], [flag, f, wide]):
+        perm = S.lexsort_permutation(keys)
+        assert perm.dtype == torch.int32 and perm.is_cuda
+    S.lexsort_permutation([k], torch.arange(5000, dtype=torch.int32,
+                                            device=cuda))
+    assert S.LAUNCHES - before == 1 + 1 + 1 + 1 + 2 + 2 + 1
+
+
+def test_join_ranges_on_card_match_cpu(cuda):
+    """``compute_join_ranges`` at a fact-to-dimension shape (2^24 facts,
+    some without a dimension, against 2^20 dimension keys, both sides
+    below capacity), with and without NULL codes (the 40-bit word, and the
+    FULL OUTER fields), on the card equals the CPU's, field by field."""
+    from harkdb_tpu_torch.ops import join as J
+
+    rng = np.random.default_rng(11)
+    n_f, n_d = 1 << 24, 1 << 20
+    fk = rng.integers(0, n_d + 4096, n_f).astype(np.int32)
+    dk = rng.permutation(n_d).astype(np.int32)
+    n_l, n_r = n_f - 1000, n_d - 100
+    for nulls in (False, True):
+        l_null = rng.random(n_f) < 0.05 if nulls else None
+        r_null = rng.random(n_d) < 0.05 if nulls else None
+
+        def ranges(dev):
+            def t(a):
+                return None if a is None else torch.from_numpy(a).to(dev)
+            return J.compute_join_ranges(
+                t(fk), torch.tensor(n_l, dtype=torch.int32, device=dev),
+                t(dk), torch.tensor(n_r, dtype=torch.int32, device=dev),
+                l_null=t(l_null), r_null=t(r_null), need_full=nulls)
+
+        got, want = ranges(cuda), ranges("cpu")
+        n_lefts = int(want.n_lefts)
+        assert int(got.n_lefts) == n_lefts == n_l
+        for name in ("total", "total_left", "total_approx"):
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(want, name)), name
+        for name in ("l_orig", "counts", "lo"):
+            assert torch.equal(getattr(got, name)[:n_lefts].cpu(),
+                               getattr(want, name)[:n_lefts]), name
+        assert torch.equal(got.r_orig[:n_r].cpu(), want.r_orig[:n_r])
+        if nulls:
+            assert torch.equal(got.total_full.cpu(), want.total_full)
+            assert torch.equal(got.r_matched.cpu(), want.r_matched)
+
+
+def test_sort_counters_on_card_give_32_bits_a_join_row(cuda):
+    """A join on one int32 key sorts its rows over 32 bits: the query's
+    ``sort_row_bits`` is 32 times its ``sort_rows``."""
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(9)
+    ctx = H.Context(device=cuda)
+    ctx.create_table("f", {"k": rng.integers(0, 500, 100_000).astype(np.int32),
+                           "v": rng.integers(0, 9, 100_000).astype(np.int32)})
+    ctx.create_table("d", {"j": np.arange(512, dtype=np.int32),
+                           "g": rng.integers(0, 9, 512).astype(np.int32)})
+    ctx.sql("select f.v, d.g from f join d on f.k = d.j")
+    m = ctx.last_metrics
+    assert m.sort_rows >= 100_000 + 512
+    assert m.sort_row_bits == 32 * m.sort_rows

@@ -961,3 +961,247 @@ def test_union_set_combine_matches_jax(op, na, nc):
     want = ju._set_combine([jnp.asarray(c) for c in cols],
                            jnp.asarray(tag), op)
     _same_tuples(got, want)
+
+
+# -- the radix pair sort under lexsort_permutation --------------------------
+
+#: Key-dtype mixes by the order words they make: one word of at most 32
+#: bits, one word of 33-64 bits, and two words.
+_SORT_MIXES = {
+    "le32": [("int32",), ("float32",), ("bool", "int8", "uint8"),
+             ("int16", "int16")],
+    "33to64": [("bool", "int32"), ("int32", "uint8"), ("float32", "int16"),
+               ("int8", "int16", "int32"), ("int64",), ("float64",)],
+    "two_words": [("int32", "int32"), ("int64", "bool"),
+                  ("bool", "float64"), ("uint8", "float32", "int32")],
+}
+_SORT_CASES = [(cls, mix) for cls, mixes in _SORT_MIXES.items()
+               for mix in mixes]
+
+
+def _sort_key(rng, dtype: str, n: int) -> np.ndarray:
+    """Few distinct values (ties), the dtype's extremes, and for floats
+    ±0.0, NaN of both signs and ±inf."""
+    if dtype == "bool":
+        return rng.random(n) < 0.5
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        a = rng.integers(-3, 3, n).astype(dt)
+        for v, p in ((-0.0, 0.15), (0.0, 0.1), (np.nan, 0.1), (-np.nan, 0.05),
+                     (np.inf, 0.05), (-np.inf, 0.05)):
+            a[rng.random(n) < p] = v
+        return a
+    info = np.iinfo(dt)
+    a = rng.integers(max(info.min, -4), min(info.max, 4), n).astype(dt)
+    a[rng.random(n) < 0.05] = info.min
+    a[rng.random(n) < 0.05] = info.max
+    return a
+
+
+def _np_order(keys) -> np.ndarray:
+    """NumPy's stable lexicographic order (``keys[0]`` most significant)
+    under lax.sort's float order: -0.0 ties 0.0, every NaN after +inf."""
+    cols = []
+    for k in keys:
+        if k.dtype.kind == "f":
+            nan = np.isnan(k)
+            cols += [nan, np.where(nan | (k == 0), 0, k)]
+        else:
+            cols.append(k.astype(np.int64) if k.dtype == bool else k)
+    return np.lexsort(cols[::-1])
+
+
+def _unsigned(word: torch.Tensor, bits: int) -> np.ndarray:
+    w = word.numpy().view(np.uint32 if word.dtype == torch.int32
+                          else np.uint64)
+    return w & np.array((1 << bits) - 1, dtype=w.dtype)
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["perm", "values"])
+@pytest.mark.parametrize("cls,mix", _SORT_CASES,
+                         ids=[f"{c}-{'+'.join(m)}" for c, m in _SORT_CASES])
+def test_pair_sort_matches_numpy_stable_order(cls, mix, carry):
+    """``order_words`` makes the mix's word class; ``sort_pairs``' plain
+    twin sorts each word as NumPy's stable argsort of its low bits does;
+    ``lexsort_permutation`` gives NumPy's stable lexicographic order (ties
+    in input order, INT32_MIN / INT32_MAX, ±0.0 and NaN included), as the
+    int32 permutation or as the sorted last word and carried values; and
+    ``sort_batch`` puts pad rows last."""
+    from harkdb_tpu_torch.ops import sort as S
+
+    rng = np.random.default_rng(len(_SORT_CASES) * carry
+                                + _SORT_CASES.index((cls, mix)))
+    n = 3001
+    keys = [_sort_key(rng, d, n) for d in mix]
+    tkeys = [torch.from_numpy(k) for k in keys]
+    words = S.order_words(tkeys)
+    bits = [b for _w, b in words]
+    if cls == "two_words":
+        assert len(words) == 2
+    else:
+        assert len(words) == 1 and (bits[0] <= 32) == (cls == "le32")
+        assert words[0][0].dtype == (torch.int32 if cls == "le32"
+                                     else torch.int64)
+    assert S.one_integer_word(tkeys) == (
+        len(words) == 1 and all(np.dtype(d).kind != "f" for d in mix))
+
+    values = rng.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+    values[:2] = (I32_MIN, I32_MAX)
+    for w, b in words:
+        for low in (b, max(1, b - 5)):          # its own bits, and fewer
+            got_w, got_v = S.sort_pairs(w.clone(), low,
+                                        torch.from_numpy(values))
+            order = np.argsort(_unsigned(w, low), kind="stable")
+            np.testing.assert_array_equal(got_w.numpy(), w.numpy()[order])
+            np.testing.assert_array_equal(got_v.numpy(), values[order])
+
+    want = _np_order(keys)
+    if carry:
+        sword, sval = S.lexsort_permutation(tkeys, torch.from_numpy(values))
+        np.testing.assert_array_equal(sval.numpy(), values[want])
+        np.testing.assert_array_equal(sword.numpy(),
+                                      words[-1][0].numpy()[want])
+    else:
+        perm = S.lexsort_permutation(tkeys)
+        assert perm.dtype == torch.int32
+        np.testing.assert_array_equal(perm.numpy(), want)
+
+    n_valid = n - 400
+    cols = {f"k{i}": t for i, t in enumerate(tkeys)}
+    cols["row"] = torch.arange(n, dtype=torch.int32)
+    out = sort_batch(TBatch(cols, torch.tensor(n_valid, dtype=torch.int32)),
+                     list(cols)[:-1])
+    is_pad = np.arange(n) >= n_valid
+    np.testing.assert_array_equal(out.columns["row"].numpy(),
+                                  _np_order([is_pad] + keys))
+    assert int(out.n_valid) == n_valid
+
+
+def _brute_ranges(lk, rk, n_l, n_r, l_null, r_null):
+    """compute_join_ranges' live fields by definition: lefts and rights in
+    stable (key tuple, null code) order; a left matches the live rights of
+    its tuple when neither is NULL; ``lo`` counts the rights before its
+    tuple."""
+    def side(keys, n_valid, null, code):
+        tup = [tuple(int(k[i]) for k in keys)
+               + ((code if null is not None and null[i] else 0),)
+               for i in range(n_valid)]
+        order = sorted(range(n_valid), key=lambda i: tup[i])
+        return order, [tup[i] for i in order]
+
+    l_order, l_tup = side(lk, n_l, l_null, 2)
+    r_order, r_tup = side(rk, n_r, r_null, 1)
+    counts = [sum(t == u for u in r_tup) if t[-1] == 0 else 0 for t in l_tup]
+    lo = [sum(u < t for u in r_tup) for t in l_tup]
+    r_matched = [u[-1] == 0 and u in l_tup for u in r_tup]
+    total = sum(counts)
+    total_left = sum(max(c, 1) for c in counts)
+    return dict(l_orig=l_order, counts=counts, lo=lo, r_orig=r_order,
+                r_matched=r_matched, total=total, total_left=total_left,
+                total_full=total_left + r_matched.count(False))
+
+
+_ONE_WORD_KEYS = [("int32",), ("int32", "nulls"), ("int16", "int8"),
+                  ("int64",)]
+
+
+@pytest.mark.parametrize("need_full", [False, True])
+@pytest.mark.parametrize("sides", ["both", "empty_left", "empty_right"])
+@pytest.mark.parametrize("layout", _ONE_WORD_KEYS,
+                         ids=["+".join(k) for k in _ONE_WORD_KEYS])
+def test_join_ranges_one_word_path(monkeypatch, layout, sides, need_full):
+    """``compute_join_ranges`` with integer keys that pack into one order
+    word reads its runs off the sorted word and carries the tag through the
+    sort; field by field it equals the per-operand path (the same inputs
+    with the one-word test turned off) and a brute-force reference, with
+    duplicate keys, keys equal to the pads' fill, NULL codes, n_valid below
+    capacity, an empty side and the FULL OUTER fields."""
+    rng = np.random.default_rng(_ONE_WORD_KEYS.index(layout) * 10
+                                + len(sides) + need_full)
+    dtypes = [d for d in layout if d != "nulls"]
+    nl, nr = 300, 200
+    n_l = 0 if sides == "empty_left" else 280
+    n_r = 0 if sides == "empty_right" else 190
+
+    def keys(n):
+        out = []
+        for d in dtypes:
+            k = rng.integers(0, 12, n).astype(d)
+            k[rng.random(n) < 0.05] = np.iinfo(d).max    # the pads' fill
+            k[rng.random(n) < 0.03] = np.iinfo(d).min
+            out.append(k)
+        return out
+
+    lk, rk = keys(nl), keys(nr)
+    l_null = rng.random(nl) < 0.15 if "nulls" in layout else None
+    r_null = rng.random(nr) < 0.15 if "nulls" in layout else None
+
+    def ranges():
+        return TJ.compute_join_ranges(
+            [torch.from_numpy(k) for k in lk],
+            torch.tensor(n_l, dtype=torch.int32),
+            [torch.from_numpy(k) for k in rk],
+            torch.tensor(n_r, dtype=torch.int32),
+            l_null=None if l_null is None else torch.from_numpy(l_null),
+            r_null=None if r_null is None else torch.from_numpy(r_null),
+            need_full=need_full)
+
+    assert TJ.one_integer_word([torch.from_numpy(k) for k in lk]
+                               + ([torch.from_numpy(l_null)]
+                                  if l_null is not None else []))
+    one = ranges()
+    monkeypatch.setattr(TJ, "one_integer_word", lambda keys: False)
+    per_operand = ranges()
+    want = _brute_ranges(lk, rk, n_l, n_r, l_null, r_null)
+
+    for got in (one, per_operand):
+        n_lefts = int(got.n_lefts)
+        assert n_lefts == n_l
+        for name in ("l_orig", "counts", "lo"):
+            np.testing.assert_array_equal(
+                getattr(got, name).numpy()[:n_lefts], want[name],
+                err_msg=name)
+        np.testing.assert_array_equal(got.r_orig.numpy()[:n_r],
+                                      want["r_orig"])
+        assert int(got.total) == want["total"]
+        assert int(got.total_left) == want["total_left"]
+        assert float(got.total_approx) == want["total"]
+        if need_full:
+            assert int(got.total_full) == want["total_full"]
+            np.testing.assert_array_equal(got.r_matched.numpy()[:n_r],
+                                          want["r_matched"])
+            assert got.r_matched.numpy()[n_r:].all()
+        else:
+            assert got.total_full is None and got.r_matched is None
+    for name in ("l_orig", "counts", "lo", "r_orig", "n_lefts", "total",
+                 "total_left", "total_approx"):
+        assert torch.equal(getattr(one, name), getattr(per_operand, name)), \
+            name
+    if need_full:
+        assert torch.equal(one.r_matched, per_operand.r_matched)
+        assert torch.equal(one.total_full, per_operand.total_full)
+
+
+def test_sort_counters_give_a_lone_int32_join_key_32_bits():
+    """``QueryMetrics.sort_rows`` / ``sort_row_bits``: a join on one int32
+    key sorts both sides' rows (to their capacities) once, over 32 bits; a
+    group-by on the joined rows (a key span too wide for the dense path)
+    adds a word of the drop flag and its int32 key, 33 bits."""
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(7)
+    ctx = H.Context(device="cpu")
+    ctx.create_table("f", {"k": rng.integers(0, 50, 1000).astype(np.int32),
+                           "v": rng.integers(0, 9, 1000).astype(np.int32)})
+    ctx.create_table("d", {"j": np.arange(64, dtype=np.int32),
+                           "g": rng.integers(0, 10**7, 64).astype(np.int32)})
+    ctx.sql("select f.v, d.g from f join d on f.k = d.j")
+    m = ctx.last_metrics
+    assert m.sort_rows >= 1000 + 64
+    assert m.sort_row_bits == 32 * m.sort_rows
+    ctx.sql("select f.v, d.g from f join d on f.k = d.j")
+    assert ctx.last_metrics.sort_rows == m.sort_rows      # per query
+    ctx.sql("select d.g, sum(f.v) as s from f join d on f.k = d.j "
+            "group by d.g")
+    m = ctx.last_metrics
+    assert m.sort_row_bits > 32 * m.sort_rows
