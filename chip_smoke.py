@@ -2229,7 +2229,7 @@ PLAIN_VERSIONS = (
     ("kernels.expand", "expand_fills_reference"),
     ("prims.segmented", "doubling_segmented_scan"),
     ("prims.segmented", "_pair_scan"),
-    ("ops.sort", "sort_pairs_reference"),
+    ("kernels.radix_sort", "sort_pairs_reference"),
 )
 
 
@@ -2446,8 +2446,9 @@ def nan_table(n: int):
 
 
 def route_view(key: np.ndarray) -> np.ndarray:
-    """``_route_order_view``'s ascending order in numpy (int64): floats by
-    their IEEE bits, negative patterns mapped below the positive ones."""
+    """``ops.sort.ieee_order_view``'s ascending order in numpy (int64):
+    floats by their IEEE bits, negative patterns mapped below the positive
+    ones."""
     if key.dtype == np.float32:
         bits = key.view(np.int32).astype(np.int64)
         return np.where(bits < 0, -(1 << 31) - bits, bits)
@@ -2868,13 +2869,15 @@ def check_pair_sort(torch, S, dev, n: int, cls: str, seed: int) -> None:
     in sorted words and values: ``sort_pairs`` on the class's one word, or
     ``lexsort_permutation`` over two words (as the permutation, and as the
     last word with values carried). Raises on any difference."""
+    from harkdb_tpu_torch.kernels import radix_sort as R
+
     keys, values = pair_sort_inputs(torch, n, cls, seed, dev)
     cpu_keys = [k.cpu() for k in keys]
     words = S.order_words(keys)
     want_bits = {"word32": [32], "word40": [40], "two_words": [32, 32]}[cls]
     if [b for _w, b in words] != want_bits:
         raise AssertionError(f"{cls}: words of {[b for _w, b in words]} bits")
-    before = S.LAUNCHES
+    before = R.LAUNCHES
     if cls == "two_words":
         got = [S.lexsort_permutation(keys)]
         got += S.lexsort_permutation(keys, values.clone())
@@ -2882,14 +2885,14 @@ def check_pair_sort(torch, S, dev, n: int, cls: str, seed: int) -> None:
         want += S.lexsort_permutation(cpu_keys, values.cpu())
     else:
         (w, bits), = words
-        got = S.sort_pairs(w.clone(), bits, values.clone())
-        want = S.sort_pairs_reference(w.cpu(), bits, values.cpu())
+        got = R.sort_pairs(w.clone(), bits, values.clone())
+        want = R.sort_pairs_reference(w.cpu(), bits, values.cpu())
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, want)):
         if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
             raise AssertionError(f"pair sort {cls} at {n:,} rows: output "
                                  f"{i} differs from the plain twin")
-    if n and S.LAUNCHES == before:
+    if n and R.LAUNCHES == before:
         raise AssertionError(f"pair sort {cls} at {n:,} rows: no launch")
 
 
@@ -2942,6 +2945,7 @@ def phase_pair_sort(torch, dev, n: int = PAIR_SORT_N) -> list:
     the card's rate, and ``torch.sort`` over the same words widened to
     int64 (the port's sort before) as the library yardstick, whose order
     the pair sort must equal."""
+    from harkdb_tpu_torch.kernels import radix_sort as R
     from harkdb_tpu_torch.ops import sort as S
 
     for cls in PAIR_SORT_CLASSES:
@@ -2964,7 +2968,7 @@ def phase_pair_sort(torch, dev, n: int = PAIR_SORT_N) -> list:
         else:
             (w, bits), = words
             ms, times = _fresh_event_ms(
-                torch, lambda a, b: S.sort_pairs(a, bits, b), [w, values])
+                torch, lambda a, b: R.sort_pairs(a, bits, b), [w, values])
             lex_ms, _ = _fresh_event_ms(
                 torch, lambda v: S.lexsort_permutation(keys, v), [values])
             nbytes = pair_sort_bytes(n, w.element_size(), bits)

@@ -15,7 +15,7 @@ Plans are cached on the Context keyed by (sql text, table signature), the
 and lowering, never a result: subqueries and derived tables run on every
 execution, and what they made is dropped when the query returns.
 Under a mesh (``Context(mesh=...)``) every rank runs the same calls and
-queries run through ``parallel/executor.py``.
+queries run through ``parallel/executor.run_on_mesh``.
 """
 
 from __future__ import annotations
@@ -217,15 +217,10 @@ class Context:
         return self._allocated() - sum(self._table_bytes.values()) - shards
 
     def _execute_distributed(self, plan) -> ColumnBatch:
-        from harkdb_tpu_torch.parallel.executor import DistExecutor
-        from harkdb_tpu_torch.plan.union_plan import UnionPlan
+        from harkdb_tpu_torch.parallel.executor import run_on_mesh
 
-        if isinstance(plan, UnionPlan):
-            # UnionPlan drives its own arms over the mesh
-            return plan.execute(self.tables, mesh=self.mesh,
-                                shard_cache=self._shard_cache)
-        return DistExecutor(plan, self.mesh, self.config,
-                            shard_cache=self._shard_cache).execute(self.tables)
+        return run_on_mesh(plan, self.tables, self.mesh, self.config,
+                           self._shard_cache)
 
     # -- persistence (SURVEY §5 checkpoint slot) ------------------------------
     def save(self, directory: str) -> None:

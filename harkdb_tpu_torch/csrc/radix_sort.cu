@@ -1,5 +1,5 @@
 // Stable radix pair sort: unsigned words on their low end_bit bits, with an
-// int32 value moving along (ops/sort.sort_pairs).
+// int32 value moving along (kernels/radix_sort.sort_pairs).
 //
 // Replaces no TPU kernel: the JAX package sorts with lax.sort, which XLA
 // lowers itself. It replaces one library call of the port, torch.sort over

@@ -34,7 +34,7 @@ from harkdb_tpu_torch.kernels import _lib
 #: process.
 LAUNCHES = 0
 
-KEY_TILE = 1024        # span padding granule (the planner's _pad_span)
+KEY_TILE = 1024        # span padding granule (pad_span)
 MAX_KEY_SPAN = 16384   # the dense path's gate, as in the JAX package
 MAX_SUM_COLS = 32      # sum columns one launch carries (csrc/dense_agg.cu)
 #: Shared memory a CTA of 1024 threads spends beside its histogram: two
@@ -48,6 +48,11 @@ REPLICATED_CLUSTER = 8
 #: key range split over the cluster, (c) the columns split over a pair.
 REPLICATED, SPLIT_KEYS, SPLIT_COLUMNS = 0, 1, 2
 COLUMN_PAIR_COLS = 4   # columns, the count included, shape (c) takes
+
+
+def pad_span(span: int) -> int:
+    """Round a key span up to the dense path's key-tile granule."""
+    return -(-span // KEY_TILE) * KEY_TILE
 
 
 def shape_plan(shape: int, cluster: int, span: int, n_cols: int,

@@ -16,20 +16,26 @@ from the last row to the first.
 
 ``flat_segscan`` launches the CUDA kernel for CUDA tensors and raises on
 anything it does not take. ``flat_segscan_reference`` is the plain PyTorch
-version: a log-doubling scan (``prims.segmented.doubling_segmented_scan``)
-over the whole column, which serves CPU tensors and is the baseline the
-kernel is compared and timed against on the card.
+version: a log-doubling scan (:func:`doubling_segmented_scan`) over the
+whole column, which serves CPU tensors and is the baseline the kernel is
+compared and timed against on the card.
+
+:func:`agg_segscan` and :func:`agg_neutral` adapt the kernel to the
+aggregates' names and to every dtype: the kernel scans int32 and float32,
+so narrower types scan widened and convert back, and bool add / mul scan
+as max / min (or / and, as ``jnp.add`` / ``jnp.multiply`` define them).
+The GROUP BY, the windows, the mesh's global windows and the public
+segmented primitives scan through them.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from harkdb_tpu_torch.kernels import _lib
-from harkdb_tpu_torch.prims.segmented import doubling_segmented_scan
 
 #: Number of kernel launches ``flat_segscan`` made in this process: one per
 #: group of up to 8 columns.
@@ -46,6 +52,8 @@ OPS = {
     "mul": torch.mul,
 }
 _OP_CODE = {"add": 0, "max": 1, "min": 2, "mul": 3}
+#: The kernel's op for each aggregate :func:`agg_segscan` scans.
+_AGG_OP = {"sum": "add", "prod": "mul", "max": "max", "min": "min"}
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 
@@ -76,6 +84,32 @@ def _check_inputs(op_name: str, sid: Optional[torch.Tensor],
         if c.dtype != dt or not segscan_supported(op_name, dt):
             raise ValueError(f"columns must all be int32 or all float32, "
                              f"got {[str(x.dtype) for x in cols]}")
+
+
+def doubling_segmented_scan(op: Callable, sid: torch.Tensor,
+                            values: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented scan via log-step doubling (Hillis–Steele).
+
+    ``sid`` assigns each row a segment id; rows of a segment must be
+    contiguous (the caller has sorted by key). ``values`` is ``(n,)`` or
+    ``(n, k)`` — columns scan independently under the shared ``sid``.
+    Out-of-range predecessors read id -1 and value 0, exactly as the JAX
+    version does, so results match it bit for bit (float sums combine in
+    the same order).
+    """
+    n = values.shape[0]
+    out = values
+    d = 1
+    while d < n:
+        prev_sid = torch.cat([sid.new_full((d,), -1), sid[:-d]])
+        prev = torch.cat([out.new_zeros((d,) + tuple(out.shape[1:])),
+                          out[:-d]])
+        same = sid == prev_sid
+        if out.dim() > 1:
+            same = same[:, None]
+        out = torch.where(same, op(out, prev), out)
+        d *= 2
+    return out
 
 
 def _neutral_bits(neutral, dtype: torch.dtype) -> int:
@@ -167,3 +201,40 @@ def flat_segscan_reference(op_name: str, sid: Optional[torch.Tensor],
         ne = torch.full((), neutral, dtype=c.dtype, device=c.device)
         outs.append(torch.where(lead, op(out, ne), out))
     return outs
+
+
+def agg_neutral(op_name: str, dtype: torch.dtype):
+    """The neutral element of the aggregate ``op_name`` (sum, count, prod,
+    max, min) over ``dtype``, as a Python scalar."""
+    if op_name in ("sum", "count"):
+        return 0
+    if op_name == "prod":
+        return 1
+    if dtype.is_floating_point:
+        info = torch.finfo(dtype)
+        return float(info.min) if op_name == "max" else float(info.max)
+    if dtype == torch.bool:
+        return op_name == "min"
+    info = torch.iinfo(dtype)
+    if op_name == "max":
+        return int(info.min)
+    if op_name == "min":
+        return int(info.max)
+    raise ValueError(f"Unknown aggregate {op_name!r}")
+
+
+def agg_segscan(op: str, sid: Optional[torch.Tensor],
+                cols: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Segmented scan of same-dtype columns under the aggregate ``op``
+    (sum, prod, max, min) through :func:`flat_segscan`. The kernel takes
+    int32/float32; other dtypes scan in those and convert back (bool
+    add/mul are or/and, as jnp.add/jnp.multiply define them on bools)."""
+    dt = cols[0].dtype
+    if segscan_supported(_AGG_OP[op], dt):
+        return flat_segscan(_AGG_OP[op], sid, cols, agg_neutral(op, dt))
+    if dt == torch.bool:
+        op = {"sum": "max", "prod": "min"}.get(op, op)
+    work = torch.float32 if dt.is_floating_point else torch.int32
+    out = flat_segscan(_AGG_OP[op], sid, [c.to(work) for c in cols],
+                       agg_neutral(op, work))
+    return [o.to(dt) for o in out]

@@ -12,7 +12,7 @@ order. ``u32_key_order=True`` reproduces the reference's u32 key order.
   3. per-segment values are produced as *row-level scans*: integer sums and
      counts via a global int32 cumsum + telescoping differences at segment
      ends (exact mod 2^32); float sums and max/min/prod via kernel B
-     (``kernels.segscan.flat_segscan``);
+     (``kernels.segscan.agg_segscan``);
   4. ONE compaction (kernel A, ``prims.compaction.compact_arrays``) packs
      every segment-end row (keys + all scan results + row position) to the
      front in key order.
@@ -25,8 +25,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
-from harkdb_tpu_torch.kernels.segscan import flat_segscan, segscan_supported
-from harkdb_tpu_torch.ops.sort import lexsort_permutation
+from harkdb_tpu_torch.kernels.segscan import (
+    agg_neutral, agg_segscan, flat_segscan,
+)
+from harkdb_tpu_torch.ops.sort import lexsort_permutation, u32_order_key
 from harkdb_tpu_torch.prims.compaction import compact_arrays
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 
@@ -42,55 +44,6 @@ AGG_FUNCS: Dict[str, Callable] = {
     "count": torch.add,
     "countd": torch.add,     # COUNT(DISTINCT x): distinct counts add up
 }
-
-_SEGSCAN_NAME = {"sum": "add", "prod": "mul", "max": "max", "min": "min"}
-
-
-def _neutral_py(op_name: str, dtype: torch.dtype):
-    """Op-neutral element as a python scalar."""
-    if op_name in ("sum", "count"):
-        return 0
-    if op_name == "prod":
-        return 1
-    if dtype.is_floating_point:
-        info = torch.finfo(dtype)
-        return float(info.min) if op_name == "max" else float(info.max)
-    if dtype == torch.bool:
-        return op_name == "min"
-    info = torch.iinfo(dtype)
-    if op_name == "max":
-        return int(info.min)
-    if op_name == "min":
-        return int(info.max)
-    raise ValueError(f"Unknown aggregate {op_name!r}")
-
-
-def u32_order_key(key: Tensor) -> Tensor:
-    """Order-preserving signed view of an int key's u32 bit pattern.
-
-    Flipping the sign bit maps unsigned comparison order onto signed order
-    (an involution: apply again to undo). Used by the
-    ``compat_u32_key_order`` mode to reproduce the reference's radix-sort
-    key order (``groupby.fut:21-22``: negatives sort AFTER positives).
-    """
-    if key.dtype.is_floating_point or key.dtype == torch.bool:
-        return key
-    return key ^ torch.iinfo(key.dtype).min
-
-
-def _scan(op: str, sid: Tensor, cols: List[Tensor]) -> List[Tensor]:
-    """Segmented scan of same-dtype columns through kernel B. The kernel
-    takes int32/float32; other dtypes scan in those and convert back (bool
-    add/mul are or/and, as jnp.add/jnp.multiply define them on bools)."""
-    dt = cols[0].dtype
-    if segscan_supported(_SEGSCAN_NAME[op], dt):
-        return flat_segscan(_SEGSCAN_NAME[op], sid, cols, _neutral_py(op, dt))
-    if dt == torch.bool:
-        op = {"sum": "max", "prod": "min"}.get(op, op)
-    work = torch.float32 if dt.is_floating_point else torch.int32
-    out = flat_segscan(_SEGSCAN_NAME[op], sid, [c.to(work) for c in cols],
-                       _neutral_py(op, work))
-    return [o.to(dt) for o in out]
 
 
 def groupby_aggregate(
@@ -194,7 +147,7 @@ def groupby_aggregate(
                           for c in cum_cols)
     sid = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
     for (op, _dt), members in scan_groups.items():
-        scanned = _scan(op, sid, [c for _ai, c in members])
+        scanned = agg_segscan(op, sid, [c for _ai, c in members])
         for (ai, _c), col_scan in zip(members, scanned):
             slot_of[ai] = len(end_arrays)
             end_arrays.append(col_scan)
@@ -322,7 +275,7 @@ def groupby_aggregate(
             outs.append(torch.where(live_out, r, 0).to(col.dtype))
         else:
             r = packed_vals[slot_of[ai]]
-            ne = _neutral_py(op, r.dtype)
+            ne = agg_neutral(op, r.dtype)
             outs.append(torch.where(live_out, r, ne).to(col.dtype))
     return keys_out, outs, n_groups
 

@@ -6,13 +6,14 @@ multi-key stable sort is built here as :func:`lexsort_permutation`: every
 key maps to a non-negative integer of known width whose order is the key's
 order under ``lax.sort``, adjacent keys pack into words of at most 63 bits
 (:func:`order_words`), and one stable radix sort per word
-(:func:`sort_pairs`) runs from the least significant word to the most
-significant, over that word's own bits, carrying an int32 permutation. A
-word of at most 32 bits sorts as a 4-byte word: a lone int32 key is its own
-bits with the sign bit flipped. Payload columns then move with one gather
-each; a caller with one int32 payload (the join's tagged row index) hands
-it to the sort to carry instead. Two int32 keys, a drop flag and a key, or
-a drop flag and an ORDER BY key, fit one word: one sort.
+(``kernels.radix_sort.sort_pairs``) runs from the least significant word
+to the most significant, over that word's own bits, carrying an int32
+permutation. A word of at most 32 bits sorts as a 4-byte word: a lone
+int32 key is its own bits with the sign bit flipped. Payload columns then
+move with one gather each; a caller with one int32 payload (the join's
+tagged row index) hands it to the sort to carry instead. Two int32 keys,
+a drop flag and a key, or a drop flag and an ORDER BY key, fit one word:
+one sort.
 
 Engine conventions honored:
   * padded batches — padding rows always sort to the back, regardless of the
@@ -21,18 +22,22 @@ Engine conventions honored:
   * float keys order as ``lax.sort`` orders them: -0.0 equals 0.0, and NaN
     (of either sign) sorts after +inf;
   * multi-key lexicographic sort with per-key ASC/DESC.
+
+Every key-order view of the port lives here: the sort's
+(:func:`order_words`), the top-k selection's and the mesh's range
+partition's (:func:`ieee_order_view`, which ranks a float by its bits and
+so a NaN with its sign bit set below -inf), the reference's u32 group-key
+order (:func:`u32_order_key`) and DESC's (:func:`descending_transform`).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
-from harkdb_tpu_torch.kernels import _lib
-from harkdb_tpu_torch.utils.metrics import count_sort
+from harkdb_tpu_torch.kernels.radix_sort import sort_pairs
 
 _WORD_BITS = 63          # a word of several keys stays a non-negative int64
 
@@ -40,12 +45,8 @@ _KEY_BITS = {torch.bool: 1, torch.int8: 8, torch.uint8: 8, torch.int16: 16,
              torch.int32: 32, torch.float32: 32, torch.int64: 64,
              torch.float64: 64}
 
-#: Number of pair sorts :func:`sort_pairs` ran in the card's library in this
-#: process: one per call on a CUDA tensor with rows.
-LAUNCHES = 0
 
-
-def _descending_transform(key: torch.Tensor) -> torch.Tensor:
+def descending_transform(key: torch.Tensor) -> torch.Tensor:
     """Order-reversing bijection so a DESC key can ride an ascending sort.
 
     Signed ints: bitwise-not (``~x = -x-1``) is strictly decreasing and total
@@ -56,6 +57,36 @@ def _descending_transform(key: torch.Tensor) -> torch.Tensor:
     if key.dtype == torch.bool:
         return ~key
     return torch.bitwise_not(key)
+
+
+def u32_order_key(key: torch.Tensor) -> torch.Tensor:
+    """Order-preserving signed view of an int key's u32 bit pattern.
+
+    Flipping the sign bit maps unsigned comparison order onto signed order
+    (an involution: apply again to undo). Used by the
+    ``compat_u32_key_order`` mode to reproduce the reference's radix-sort
+    key order (``groupby.fut:21-22``: negatives sort AFTER positives).
+    """
+    if key.dtype.is_floating_point or key.dtype == torch.bool:
+        return key
+    return key ^ torch.iinfo(key.dtype).min
+
+
+def ieee_order_view(key: torch.Tensor, descending: bool) -> torch.Tensor:
+    """Monotone integer view of a key by its IEEE-754 bits, for the top-k
+    selection and the mesh's range partition (the JAX package's
+    ``_route_order_view``): floats as float32 by the total-order bit trick,
+    so a NaN with its sign bit set ranks below -inf and any other NaN above
+    +inf; keys of up to 4 bytes as int32, int64 as it is; DESC keys
+    bitwise-NOT'd. The sort's view (:func:`order_words`) differs on
+    purpose: it puts every NaN last."""
+    if key.dtype.is_floating_point:
+        bits = key.to(torch.float32).view(torch.int32)
+        key = torch.where(bits < 0, torch.full_like(bits, -(1 << 31)) - bits,
+                          bits)
+    elif key.dtype != torch.int64:
+        key = key.to(torch.int32)
+    return torch.bitwise_not(key) if descending else key
 
 
 def _pad_to_max(key: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -147,79 +178,6 @@ def one_integer_word(keys: Sequence[torch.Tensor]) -> bool:
             and not any(k.dtype.is_floating_point for k in keys))
 
 
-def _check_pairs(word: torch.Tensor, bits: int, values: torch.Tensor) -> None:
-    if word.dim() != 1 or word.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"word must be a 1-D int32 or int64 tensor, got "
-                         f"{word.dtype} of shape {tuple(word.shape)}")
-    if not 1 <= bits <= 8 * word.element_size():
-        raise ValueError(f"bits {bits} outside [1, {8 * word.element_size()}]"
-                         f" for a {word.dtype} word")
-    if values.dtype != torch.int32 or values.shape != word.shape:
-        raise ValueError(f"values must be int32 of shape {tuple(word.shape)}"
-                         f", got {values.dtype} of {tuple(values.shape)}")
-    if values.device != word.device:
-        raise ValueError("word and values must share a device")
-
-
-def sort_pairs(word: torch.Tensor, bits: int, values: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable ascending sort of ``word`` on its low ``bits`` bits, read as
-    an unsigned number, with the int32 ``values`` moving along: returns
-    ``(sorted_word, sorted_values)``.
-
-    ``word`` is int32 (``bits`` <= 32) or int64 (<= 64). A CUDA tensor is
-    sorted by the card's library (``csrc/radix_sort.cu``: CUB's onesweep
-    over ``bits`` bits, no synchronisation); the word and values become one
-    half of its double buffer, so the caller hands them over and their
-    contents afterwards are unspecified. A CPU tensor takes
-    :func:`sort_pairs_reference`; any other device raises. Counts the rows
-    and bits sorted (``utils.metrics.count_sort``).
-    """
-    _check_pairs(word, bits, values)
-    dev = word.device
-    n = word.shape[0]
-    count_sort(n, bits)
-    if dev.type == "cpu":
-        return sort_pairs_reference(word, bits, values)
-    if dev.type != "cuda":
-        raise ValueError(f"sort_pairs runs on CUDA or CPU, not {dev}")
-    if n == 0:
-        return word, values
-    global LAUNCHES
-    lib = _lib.library()
-    key_bytes = word.element_size()
-    temp_bytes = lib.harkdb_radix_sort_temp_bytes(n, key_bytes, bits)
-    if temp_bytes < 0:
-        _lib.check(-temp_bytes, "radix sort temp size")
-    word, values = word.contiguous(), values.contiguous()
-    word_alt, values_alt = torch.empty_like(word), torch.empty_like(values)
-    temp = torch.empty(temp_bytes, dtype=torch.uint8, device=dev)
-    selector = (ctypes.c_int * 2)()
-    _lib.check(lib.harkdb_radix_sort_pairs(
-        word.data_ptr(), word_alt.data_ptr(), values.data_ptr(),
-        values_alt.data_ptr(), n, key_bytes, bits, temp.data_ptr(),
-        temp_bytes, selector, _lib.stream_handle(dev),
-    ), "radix sort")
-    LAUNCHES += 1
-    return ((word, word_alt)[selector[0]], (values, values_alt)[selector[1]])
-
-
-def sort_pairs_reference(word: torch.Tensor, bits: int, values: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`sort_pairs`: one stable
-    ``torch.sort`` of the word's low ``bits`` bits as an unsigned number
-    (a full-width word with its sign bit flipped, so that signed order is
-    unsigned order), then the word and values gathered through its order.
-    Leaves its inputs as they are."""
-    _check_pairs(word, bits, values)
-    if bits == 8 * word.element_size():
-        order_key = word ^ torch.iinfo(word.dtype).min
-    else:
-        order_key = word & ((1 << bits) - 1)
-    order = torch.sort(order_key, stable=True).indices
-    return word.index_select(0, order), values.index_select(0, order)
-
-
 def lexsort_permutation(keys: Sequence[torch.Tensor],
                         values: Optional[torch.Tensor] = None):
     """Stable lexicographic sort (``keys[0]`` most significant), ties in
@@ -266,7 +224,7 @@ def sort_permutation(
     eff = []
     for k, desc in zip(keys, descending):
         if desc:
-            k = _descending_transform(k)
+            k = descending_transform(k)
         eff.append(_pad_to_max(k, n_valid))
     perm = lexsort_permutation(eff)
     return perm, [k[perm] for k in eff]
@@ -300,7 +258,7 @@ def sort_batch(
     n_out = valid.sum(dtype=torch.int32)
     eff = [~valid]
     for k, desc in zip(keys, descending):
-        eff.append(_descending_transform(k) if desc else k)
+        eff.append(descending_transform(k) if desc else k)
     perm = lexsort_permutation(eff)
     cols = {name: c[perm] for name, c in batch.columns.items()}
     return ColumnBatch(cols, n_out)

@@ -2,8 +2,8 @@
 
 The planner's ORDER BY + small LIMIT path (``plan/planner.py`` ``run_tail``)
 picks the rows of the ``L`` largest values of a monotone int32 view of the
-sort key (``parallel.dist_ops._route_order_view``) instead of sorting every
-row. ``lax.top_k`` is an XLA operation, not a Pallas kernel; its counterpart
+sort key (``ops.sort.ieee_order_view``) instead of sorting every row.
+``lax.top_k`` is an XLA operation, not a Pallas kernel; its counterpart
 here is one ``torch.topk`` call.
 
 ``lax.top_k`` breaks ties by the lowest index; ``torch.topk`` promises no

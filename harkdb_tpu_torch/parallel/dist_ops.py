@@ -30,7 +30,7 @@ from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.kernels.matmul_agg import onehot_groupby_sums
 from harkdb_tpu_torch.ops.groupby import groupby_batch
 from harkdb_tpu_torch.ops.join import compute_join_ranges, join_batches
-from harkdb_tpu_torch.ops.sort import sort_batch
+from harkdb_tpu_torch.ops.sort import ieee_order_view, sort_batch
 from harkdb_tpu_torch.parallel.sharded import ShardedBatch, block_capacity
 from harkdb_tpu_torch.parallel.shuffle import (
     hash_to_bucket, repartition_with_dest,
@@ -209,20 +209,6 @@ def dist_window(
     return ShardedBatch(out.columns, out.n_valid)
 
 
-def _route_order_view(key: Tensor, descending: bool) -> Tensor:
-    """Monotone integer view of a sort key for range partitioning: floats
-    by the IEEE-754 total-order bit trick (as float32), keys of up to 4
-    bytes as int32, int64 as it is; DESC keys bitwise-NOT'd. Used for
-    splitter comparisons only."""
-    if key.dtype.is_floating_point:
-        bits = key.to(torch.float32).view(torch.int32)
-        key = torch.where(bits < 0, torch.full_like(bits, -(1 << 31)) - bits,
-                          bits)
-    elif key.dtype != torch.int64:
-        key = key.to(torch.int32)
-    return torch.bitwise_not(key) if descending else key
-
-
 def dist_orderby(
     sb: ShardedBatch,
     keys_fn: Callable[[Dict[str, Tensor], int], Sequence[Tensor]],
@@ -246,7 +232,7 @@ def dist_orderby(
     C = sb.local_capacity
     n_local = sb.count
     dev = n_local.device
-    rk = _route_order_view(keys_fn(sb.columns, C)[0], descending[0])
+    rk = ieee_order_view(keys_fn(sb.columns, C)[0], descending[0])
     S = SAMPLES_PER_SHARD
     sidx = (torch.arange(S, dtype=torch.int64, device=dev)
             * torch.clamp(n_local, min=1)) // S

@@ -1,9 +1,16 @@
 """Distributed query execution over a mesh of ranks.
 
-Counterpart of ``harkdb_tpu.parallel.executor``. Every rank runs
-:meth:`DistExecutor.execute` on the same plan: its chunk of each table is
-sharded once and cached (a derived table's inner result once per
-execution, on its ``DerivedSource``), joins, windows and GROUP BY run
+Counterpart of ``harkdb_tpu.parallel.executor``. :func:`run_on_mesh` is
+the one place that decides how a plan runs over a mesh: a ``QueryPlan``
+through :class:`DistExecutor`, a set operation as the sharded UNION tail
+(:func:`union_tail`) or as ``UnionPlan.execute`` over arms delivered to
+every rank. The Context's queries, subqueries, derived tables and the
+arms of set operations all run through it.
+
+Every rank runs :meth:`DistExecutor.execute` on the same plan: its chunk
+of each table is sharded once and cached (a derived table's inner result
+once per execution: its host copy on its ``DerivedSource``, its blocks
+made here for each binding), joins, windows and GROUP BY run
 with exchanges (``dist_ops``, ``global_window``), and the tail (HAVING /
 windows over grouped output / ORDER BY / OFFSET / LIMIT / projection /
 DISTINCT) runs sharded (``config.dist_tail``) or on the gathered result
@@ -35,12 +42,11 @@ import torch
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
-from harkdb_tpu_torch.kernels.matmul_agg import MAX_KEY_SPAN
-from harkdb_tpu_torch.ops.groupby import u32_order_key
-from harkdb_tpu_torch.ops.sort import sort_batch
+from harkdb_tpu_torch.kernels.matmul_agg import MAX_KEY_SPAN, pad_span
+from harkdb_tpu_torch.ops.sort import sort_batch, u32_order_key
 from harkdb_tpu_torch.parallel.dist_ops import (
     dist_filter, dist_groupby, dist_head, dist_join, dist_map, dist_orderby,
-    dist_window,
+    dist_window, shrink_sharded,
 )
 from harkdb_tpu_torch.parallel.global_window import (
     dist_global_window, supports_global,
@@ -49,11 +55,26 @@ from harkdb_tpu_torch.parallel.sharded import ShardedBatch, shard_batch
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.derived import DerivedSource
 from harkdb_tpu_torch.plan.expr import eval_expr
-from harkdb_tpu_torch.plan.nulls import valid_mask
-from harkdb_tpu_torch.plan.planner import (
-    QueryPlan, _null_extreme_sub, _pad_span,
-)
+from harkdb_tpu_torch.plan.nulls import null_extreme_sub, valid_mask
+from harkdb_tpu_torch.plan.planner import QueryPlan
+from harkdb_tpu_torch.plan.union_plan import UnionPlan
 from harkdb_tpu_torch.plan.windows import compute_windows
+
+
+def run_on_mesh(plan, tables: Dict[str, Table], mesh,
+                config: EngineConfig, shard_cache) -> ColumnBatch:
+    """Run ``plan`` (a ``QueryPlan`` or a ``UnionPlan``) over ``mesh``;
+    every rank returns the whole result. Inner plans (subqueries, derived
+    tables, the arms of a set operation) run through it too.
+    ``shard_cache`` is the Context's cache of table blocks."""
+    if not isinstance(plan, UnionPlan):
+        return DistExecutor(plan, mesh, config,
+                            shard_cache=shard_cache).execute(tables)
+    if config.dist_tail and all(op in ("union", "union all")
+                                for op in plan.ops):
+        return union_tail(plan, tables, mesh, config, shard_cache)
+    return plan.execute(tables, execute=lambda p: run_on_mesh(
+        p, tables, mesh, config, shard_cache))
 
 
 class DistExecutor:
@@ -71,35 +92,38 @@ class DistExecutor:
                      binding_idx: int) -> ShardedBatch:
         b, tname, cols = self.plan.bindings[binding_idx]
         src = self.plan._source(tables, tname)
-        if isinstance(src, DerivedSource):
-            # The inner query runs over the mesh once and is sharded again,
-            # cached on its own source (the shard cache is keyed by table
-            # name, which an alias could collide with).
-            return src.sharded(tables, self.mesh, self.config,
-                               self._shard_cache, b,
-                               self.plan.load_remaps.get(b, {}))
         # Merged-dictionary code remaps (string-key joins / cross-table
         # string comparisons) apply on the host before sharding; the cache
         # key carries the remap fingerprint.
         remaps = self.plan.load_remaps.get(b, {})
-        token = tuple(sorted(
-            (i, hashlib.md5(lut.tobytes()).hexdigest())
-            for i, lut in remaps.items()
-        )) if remaps else None
-        key = (tname, b, token)
-        cached = self._shard_cache.get(key)
-        if cached is not None:
-            return cached
-        t = tables[tname]
-        host = {}
-        for c in cols:
+        key = None
+        if isinstance(src, DerivedSource):
+            # The inner query runs over the mesh once per execution (its
+            # source keeps the host copy until the execution ends) and is
+            # sharded again for this binding, outside the shard cache,
+            # which is keyed by table name: two plans may give different
+            # inner queries one alias.
+            host, n = src.materialize_host(tables, self._run_inner)
+        else:
+            token = tuple(sorted(
+                (i, hashlib.md5(lut.tobytes()).hexdigest())
+                for i, lut in remaps.items()
+            )) if remaps else None
+            key = (tname, b, token)
+            cached = self._shard_cache.get(key)
+            if cached is not None:
+                return cached
+            host = {c: src.host_columns[c] for c in cols}
+            n = src.n_rows
+        block = {}
+        for c, a in host.items():
             internal = f"{b}.{c}"
-            a = t.host_columns[c]
             lut = remaps.get(internal)
-            host[internal] = lut[a] if lut is not None else a
-        host[f"#rid.{b}"] = np.arange(t.n_rows, dtype=np.int32)
-        sb = shard_batch(host, t.n_rows, self.mesh, self.config)
-        self._shard_cache[key] = sb
+            block[internal] = lut[a] if lut is not None else a
+        block[f"#rid.{b}"] = np.arange(n, dtype=np.int32)
+        sb = shard_batch(block, n, self.mesh, self.config)
+        if key is not None:
+            self._shard_cache[key] = sb
         return sb
 
     # -- execution ------------------------------------------------------------
@@ -110,17 +134,6 @@ class DistExecutor:
         return dist_filter(
             sb, lambda cols, cap: eval_expr(expr, cols, cap, self.config))
 
-    def _run_subplan(self, tables, plan) -> ColumnBatch:
-        """A subquery's plan, run over the same mesh (every rank gets the
-        whole result, which the outer plan substitutes as literals)."""
-        from harkdb_tpu_torch.plan.union_plan import UnionPlan
-
-        if isinstance(plan, UnionPlan):
-            return plan.execute(tables, mesh=self.mesh,
-                                shard_cache=self._shard_cache)
-        return DistExecutor(plan, self.mesh, self.config,
-                            self._shard_cache).execute(tables)
-
     def execute(self, tables: Dict[str, Table], deliver: bool = True):
         """Run the planned query over the mesh; every rank returns the
         whole result. ``deliver=False`` returns this rank's block of the
@@ -128,12 +141,13 @@ class DistExecutor:
         :class:`ShardedBatch`) for the UNION tail to compose; the
         ``dist_tail=False`` path delivers all the same.
 
-        Subqueries run first, over the mesh, and their results are read
-        back and substituted before the pipeline reads the expressions;
-        they and the derived tables' blocks live for this call only
-        (``QueryPlan.one_execution``)."""
-        with self.plan.one_execution(
-                tables, execute=lambda p: self._run_subplan(tables, p)):
+        Subqueries run first, over the mesh (:func:`run_on_mesh`), and
+        their results are read back and substituted before the pipeline
+        reads the expressions; they and the derived tables' results live
+        for this call only (``QueryPlan.one_execution``)."""
+        self._run_inner = lambda p: run_on_mesh(
+            p, tables, self.mesh, self.config, self._shard_cache)
+        with self.plan.one_execution(tables, execute=self._run_inner):
             return self._execute(tables, deliver)
 
     def _execute(self, tables: Dict[str, Table], deliver: bool):
@@ -372,7 +386,7 @@ class DistExecutor:
             if not (cfg.compat_u32_key_order and kmin < 0):
                 span = kmax - kmin + 1
                 if span <= MAX_KEY_SPAN:
-                    fast = (kmin, _pad_span(span))
+                    fast = (kmin, pad_span(span))
         plan._probed_fast_dist = fast if fast is not None else ()
         return fast
 
@@ -470,7 +484,7 @@ class DistExecutor:
                     a = cols[f"#out{j}"]
                     nf = cols.get(f"#nullflag{j}")
                     if nf is not None:
-                        a = _null_extreme_sub(a, nf == 0, d, nu)
+                        a = null_extreme_sub(a, nf == 0, d, nu)
                     ks.append(a)
                 return ks + [cols[k] for k in out_names]
 
@@ -520,3 +534,162 @@ class DistExecutor:
         if not self._deliver:
             return work
         return work.to_batch_device(mesh)
+
+
+def union_tail(plan: UnionPlan, tables: Dict[str, Table], mesh,
+               config: EngineConfig, shard_cache) -> ColumnBatch:
+    """The UNION tail on a mesh, sharded: arms run to their ranks'
+    projected blocks (``DistExecutor.execute(deliver=False)``) and are
+    concatenated rank by rank; a non-ALL junction dedupes through the
+    tuple-hash ``dist_groupby``; the trailing ORDER BY / OFFSET / LIMIT
+    are ``dist_orderby`` / ``dist_head``; one delivery at the end. Each
+    rank holds about 1/D of the combined rows until then
+    (``last_tail_capacities`` records (stage, this rank's capacity)).
+
+    Order parity with the single-device tail: a hidden ``#upos``
+    column holds each row's position in the arms' concatenation
+    (after a dedupe, which leaves the single device's rows sorted by
+    tuple, the tuple's rank); the final sort's key chain is (ORDER BY
+    outputs, ``#upos``)."""
+    n_out = len(plan.output_names)
+    out_names = [f"#out{j}" for j in range(n_out)]
+    caps = []
+
+    # Every arm runs sharded first, so the union-wide set of NULL
+    # indicators is known before any arm is normalised to it.
+    arm_sbs = [DistExecutor(p, mesh, config, shard_cache=shard_cache)
+               .execute(tables, deliver=False) for p in plan.arms]
+    nf_idx = sorted({j for sb in arm_sbs for j in range(n_out)
+                     if f"#nullflag{j}" in sb.names})
+    all_names = out_names + [f"#nullflag{j}" for j in nf_idx]
+
+    def positions(sb: ShardedBatch, base: int):
+        """``sb`` with ``#upos`` = base + the row's global live
+        position (rank order), and the live rows over all ranks."""
+        gc = mesh.all_gather(sb.count.reshape(1)).reshape(-1)
+        prefix = gc[:mesh.rank].sum(dtype=torch.int32)
+        cols = dict(sb.columns)
+        cols["#upos"] = base + prefix + torch.arange(
+            sb.local_capacity, dtype=torch.int32, device=prefix.device)
+        return ShardedBatch(cols, sb.count), int(gc.sum())
+
+    def concat(a: ShardedBatch, b: ShardedBatch) -> ShardedBatch:
+        """Rank-wise concatenation, live rows packed first (a's, then
+        b's: kernel A over the joined blocks)."""
+        dev = a.count.device
+        live = torch.cat([
+            torch.arange(a.local_capacity, device=dev) < a.count,
+            torch.arange(b.local_capacity, device=dev) < b.count])
+        both = ShardedBatch(
+            {n: torch.cat([a.columns[n], b.columns[n]])
+             for n in a.names},
+            torch.full((), live.shape[0], dtype=torch.int32, device=dev))
+        return dist_filter(both, lambda cols, cap: live)
+
+    def dedupe(sb: ShardedBatch):
+        """Distinct tuples in global tuple order, positions renewed
+        (the single-device dedupe leaves rows sorted by (values,
+        flags); NULL cells are zeroed, so NULLs dedupe as equal)."""
+        sb = dist_groupby(ShardedBatch({n: sb.columns[n]
+                                        for n in all_names}, sb.count),
+                          all_names, [], mesh)
+        sb = dist_orderby(sb, lambda cols, cap: [cols[n]
+                                                 for n in all_names],
+                          [False] * len(all_names), mesh)
+        return positions(sb, 0)
+
+    acc = None
+    base = 0
+    for ai, sb in enumerate(arm_sbs):
+        caps.append((f"arm{ai}", sb.local_capacity))
+        # Normalise to the union-wide columns: merged-dictionary code
+        # remaps, all-1 flags where this arm has no indicator, NULL
+        # cells zeroed (one canonical NULL per position).
+        luts = {j: torch.as_tensor(plan.code_remaps[j][ai]).to(
+                    mesh.device)
+                for j in range(n_out)
+                if plan.code_remaps[j] is not None
+                and plan.code_remaps[j][ai] is not None}
+        have = set(sb.names)
+
+        def norm_fn(cols, cap, _luts=luts, _have=have):
+            out = {}
+            for j in range(n_out):
+                c = cols[f"#out{j}"]
+                lut = _luts.get(j)
+                if lut is not None:
+                    c = lut[torch.clamp(c, 0, lut.shape[0] - 1).long()]
+                out[f"#out{j}"] = c
+            for j in nf_idx:
+                fname = f"#nullflag{j}"
+                if fname in _have:
+                    fl = (cols[fname] != 0).to(torch.int32)
+                    out[fname] = fl
+                    c = out[f"#out{j}"]
+                    out[f"#out{j}"] = torch.where(fl != 0, c,
+                                                  torch.zeros_like(c))
+                else:
+                    out[fname] = torch.ones(cap, dtype=torch.int32,
+                                            device=mesh.device)
+            return out
+
+        sb, n_arm = positions(dist_map(sb, norm_fn), base)
+        base += n_arm
+        if acc is None:
+            acc = sb
+            continue
+        # int / float promotion, guarded by the exact-integer span read
+        # from an all-reduced maximum (the same on every rank)
+        casts = []
+        for j in range(n_out):
+            name = f"#out{j}"
+            a_, c_ = acc.columns[name], sb.columns[name]
+            if a_.dtype.is_floating_point == c_.dtype.is_floating_point:
+                continue
+            for part in (acc, sb):
+                x = part.columns[name]
+                if not x.dtype.is_floating_point:
+                    live = torch.arange(x.shape[0],
+                                        device=x.device) < part.count
+                    m = torch.where(live, x.to(torch.int64).abs(),
+                                    0).max()
+                    plan.check_span(int(mesh.all_reduce(m.reshape(1),
+                                                         "max")))
+            casts.append(name)
+        if casts:
+            tgt = plan.float_target()
+
+            def cast_fn(cols, cap, _c=tuple(casts)):
+                return {n: c.to(tgt) if n in _c else c
+                        for n, c in cols.items()}
+
+            acc, sb = dist_map(acc, cast_fn), dist_map(sb, cast_fn)
+        acc = shrink_sharded(concat(acc, sb), mesh)
+        caps.append((f"concat{ai}", acc.local_capacity))
+        if plan.ops[ai - 1] == "union":
+            acc, base = dedupe(acc)
+            caps.append((f"dedupe{ai}", acc.local_capacity))
+
+    # The final global order: the trailing ORDER BY's outputs (NULL
+    # placement by the indicators), ties by #upos — the single-device
+    # stable sort over the concatenation / dedupe order.
+    order_pos = list(plan.order_pos)
+
+    def final_keys(cols, cap):
+        ks = []
+        for j, d, nu in order_pos:
+            a = cols[f"#out{j}"]
+            f = cols.get(f"#nullflag{j}")
+            if f is not None:
+                a = null_extreme_sub(a, f == 0, d, nu)
+            ks.append(a)
+        return ks + [cols["#upos"]]
+
+    acc = dist_orderby(acc, final_keys,
+                       [d for _j, d, _nu in order_pos] + [False], mesh)
+    if plan.offset or plan.limit is not None:
+        acc = dist_head(acc, plan.offset or 0, plan.limit, mesh)
+    caps.append(("deliver", acc.local_capacity))
+    plan.last_tail_capacities = caps
+    return ShardedBatch({n: acc.columns[n] for n in all_names},
+                        acc.count).to_batch_device(mesh)

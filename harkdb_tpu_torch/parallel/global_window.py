@@ -38,8 +38,8 @@ from typing import Sequence, Tuple
 import torch
 
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
-from harkdb_tpu_torch.ops.groupby import _neutral_py, _scan
-from harkdb_tpu_torch.ops.sort import _descending_transform
+from harkdb_tpu_torch.kernels.segscan import agg_neutral, agg_segscan
+from harkdb_tpu_torch.ops.sort import descending_transform
 from harkdb_tpu_torch.parallel.dist_ops import dist_orderby
 from harkdb_tpu_torch.parallel.sharded import ShardedBatch
 from harkdb_tpu_torch.plan.expr import eval_expr
@@ -127,7 +127,7 @@ def dist_global_window(
     o_changed = torch.zeros(C, dtype=torch.bool, device=dev)
     for oe, d in zip(oexprs, descs):
         k = eval_expr(oe, cols, C, cfg)
-        k = _descending_transform(k) if d else k
+        k = descending_transform(k) if d else k
         o_changed = o_changed | (k != torch.cat([k[:1], k[:-1]]))
     is_tstart = valid & ((idx == 0) | o_changed)
     # padding rows form a run of their own, so no peer broadcast reads them
@@ -138,7 +138,7 @@ def dist_global_window(
 
     def pscan(op, x):
         # one segment: the padding rows come after every live row
-        return _scan(op, None, [x])[0]
+        return agg_segscan(op, None, [x])[0]
 
     # Per-rank (rows, runs) → (D, 2); the sums over ranks < me are the carry.
     g = mesh.all_gather(torch.stack([n_local.to(torch.int32),
@@ -151,7 +151,7 @@ def dist_global_window(
     def rank_combine(x, op: str, all_ranks: bool):
         """``op`` over the live ``x`` of the ranks below this one (the
         carry) or of every rank (a window without ORDER BY)."""
-        ne = torch.full((), _neutral_py(op, x.dtype), dtype=x.dtype,
+        ne = torch.full((), agg_neutral(op, x.dtype), dtype=x.dtype,
                         device=dev)
         local = _reduce(op, torch.where(valid, x, ne))
         gv = mesh.all_gather(local.reshape(1)).reshape(D)

@@ -9,10 +9,9 @@ which drops it when it returns (``release``): a cached plan keeps its
 plan, never a result. String outputs carry their dictionaries through, so
 LIKE / comparisons / joins on derived string columns work unchanged.
 
-On a mesh the inner query runs over the mesh (``DistExecutor``, or
-``UnionPlan.execute(mesh=...)`` for a set operation); every rank receives
-the whole result, keeps the same host copy and shards it again for the
-outer plan (``sharded``), both for that execution only.
+On a mesh the mesh runner runs the inner query (``materialize_host``):
+every rank receives the whole result and keeps the same host copy for
+that execution, which the outer plan's executor shards again.
 
 Limits, as in the JAX package: the dense GROUP BY gate stays off for
 derived columns (no host stats), and hidden LEFT-JOIN NULL flags do not
@@ -50,14 +49,11 @@ class DerivedSource:
         # This execution's materialization (``release`` drops it).
         self._batch: Optional[ColumnBatch] = None
         self._host: Optional[Tuple[Dict[str, np.ndarray], int]] = None
-        self._shards: Dict[str, object] = {}   # per outer binding (a CTE
-        #                                        source may back several)
 
     def release(self) -> None:
         """Drop the materialization: the outer plan's execution ends."""
         self._batch = None
         self._host = None
-        self._shards = {}
 
     # -- planner surface ------------------------------------------------------
     def get_schema(self) -> List[str]:
@@ -91,54 +87,16 @@ class DerivedSource:
             )
         return self._batch
 
-    def materialize_host(self, tables, mesh=None, config=None,
-                         shard_cache=None):
-        """(host column dict, n_rows) of the inner result for sharding:
-        the inner query runs over ``mesh`` when one of several ranks is
-        given, and every rank gets the same copy."""
+    def materialize_host(self, tables, execute):
+        """(host column dict, n_rows) of the inner result, run on first use
+        within an execution through ``execute(plan)`` (the mesh runner:
+        every rank gets the whole result, and so the same copy)."""
         if self._host is None:
-            from harkdb_tpu_torch.plan.union_plan import UnionPlan
-
             with inner_plan():
-                if isinstance(self.plan, UnionPlan):
-                    # a set operation drives its own arms (distributed or
-                    # not)
-                    b = self.plan.execute(tables, mesh=mesh,
-                                          shard_cache=shard_cache)
-                elif mesh is not None and mesh.size > 1:
-                    from harkdb_tpu_torch.parallel.executor import (
-                        DistExecutor,
-                    )
-
-                    b = DistExecutor(self.plan, mesh, config,
-                                     shard_cache=shard_cache).execute(tables)
-                else:
-                    b = self.plan.execute(tables)
+                b = execute(self.plan)
             with host_read("subquery"):
                 n = int(b.n_valid)
                 self._host = ({nm: b.columns[oi][:n].cpu().numpy()
                                for nm, oi in zip(self._schema,
                                                  self._out_internal(b))}, n)
         return self._host
-
-    def sharded(self, tables, mesh, config, shard_cache, binding: str,
-                remaps: Dict[str, np.ndarray]):
-        """This rank's block of the inner result, kept here per outer
-        binding for the execution (not in the Context's shard cache, which
-        is keyed by table name: two plans may give different inner queries
-        one alias).
-        ``remaps`` are the outer plan's merged-dictionary code LUTs,
-        applied on the host as for base tables."""
-        if binding not in self._shards:
-            from harkdb_tpu_torch.parallel.sharded import shard_batch
-
-            host, n = self.materialize_host(tables, mesh, config,
-                                            shard_cache)
-            cols = {}
-            for c, a in host.items():
-                internal = f"{binding}.{c}"
-                lut = remaps.get(internal)
-                cols[internal] = lut[a] if lut is not None else a
-            cols[f"#rid.{binding}"] = np.arange(n, dtype=np.int32)
-            self._shards[binding] = shard_batch(cols, n, mesh, config)
-        return self._shards[binding]

@@ -47,6 +47,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
+import torch
+
 from harkdb_tpu_torch.sql.ast_nodes import (
     Agg, BinOp, Case, Coalesce, CodeMap, Col, InSub, Lit, LutMember,
     NullTag, Star, StrFunc, UnOp, WindowFn, walk,
@@ -64,6 +66,23 @@ def valid_mask(flags: Sequence[str], cols) -> object:
     for f in flags[1:]:
         m = m & (cols[f] != 0)
     return m
+
+
+def null_extreme_sub(a, isnull, d: bool, nu):
+    """Substitute the dtype extreme for NULL rows in a sort KEY (values are
+    untouched), so NULLs sort to the requested end: default LAST for ASC,
+    FIRST for DESC (SQL treats NULL as largest). Real extreme values
+    interleave with NULLs by tie order — documented edge."""
+    first = (nu == "first") if nu else d
+    # ASC+last and DESC+first want the LARGEST key (SQL's "NULL sorts as
+    # larger than any value" defaults); the two overrides want the smallest.
+    use_max = first == d
+    if a.dtype.is_floating_point:
+        ext = float("inf") if use_max else float("-inf")
+    else:
+        info = torch.iinfo(a.dtype)
+        ext = info.max if use_max else info.min
+    return torch.where(isnull, torch.full_like(a, ext), a)
 
 
 def _contains_agg(e) -> bool:

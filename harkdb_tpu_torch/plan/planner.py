@@ -57,16 +57,20 @@ from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.kernels.matmul_agg import (
-    KEY_TILE, MAX_KEY_SPAN, onehot_groupby_sums,
+    MAX_KEY_SPAN, onehot_groupby_sums, pad_span,
 )
 from harkdb_tpu_torch.ops.groupby import groupby_batch
 from harkdb_tpu_torch.ops.join import compute_join_ranges, join_batches
-from harkdb_tpu_torch.ops.sort import lexsort_permutation, sort_batch
+from harkdb_tpu_torch.ops.sort import (
+    ieee_order_view, lexsort_permutation, sort_batch,
+)
 from harkdb_tpu_torch.ops.topk import top_k_indices
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
-from harkdb_tpu_torch.plan.nulls import NullSemantics, valid_mask
+from harkdb_tpu_torch.plan.nulls import (
+    NullSemantics, null_extreme_sub, valid_mask,
+)
 from harkdb_tpu_torch.plan.strings import StringLowering
 from harkdb_tpu_torch.plan.windows import compute_windows
 from harkdb_tpu_torch.prims.compaction import compact_batch
@@ -100,28 +104,6 @@ def _check_join_total(ranges) -> None:
                 f"(≈{approx:.3g}) — beyond the engine's "
                 f"2^31-row capacity; add join keys or filters"
             )
-
-
-def _pad_span(span: int) -> int:
-    """Round a key span up to the dense path's key-tile granule."""
-    return -(-span // KEY_TILE) * KEY_TILE
-
-
-def _null_extreme_sub(a, isnull, d: bool, nu):
-    """Substitute the dtype extreme for NULL rows in a sort KEY (values are
-    untouched), so NULLs sort to the requested end: default LAST for ASC,
-    FIRST for DESC (SQL treats NULL as largest). Real extreme values
-    interleave with NULLs by tie order — documented edge."""
-    first = (nu == "first") if nu else d
-    # ASC+last and DESC+first want the LARGEST key (SQL's "NULL sorts as
-    # larger than any value" defaults); the two overrides want the smallest.
-    use_max = first == d
-    if a.dtype.is_floating_point:
-        ext = float("inf") if use_max else float("-inf")
-    else:
-        info = torch.iinfo(a.dtype)
-        ext = info.max if use_max else info.min
-    return torch.where(isnull, torch.full_like(a, ext), a)
 
 
 def _expr_name(expr) -> str:
@@ -1127,7 +1109,7 @@ class QueryPlan(StringLowering, NullSemantics):
                         span = rng[1] - rng[0] + 1
                         if span <= MAX_KEY_SPAN:
                             self.fast_agg = (
-                                key_internal, rng[0], _pad_span(span)
+                                key_internal, rng[0], pad_span(span)
                             )
 
         # ---- projection pushdown ---------------------------------------------
@@ -1287,13 +1269,13 @@ class QueryPlan(StringLowering, NullSemantics):
     def _null_adjusted_key(self, expr, d: bool, nu, cols, cap):
         """ORDER BY key for a possibly-nullable expression: evaluate, then
         substitute the dtype extreme on NULL rows so NULLs sort to the SQL
-        end (``_null_extreme_sub``); plain expressions unchanged."""
+        end (``null_extreme_sub``); plain expressions unchanged."""
         a = eval_expr(expr, cols, cap, self.config)
         flags = self._nullable_flags_in(expr)
         if flags:
             m = self._valid_arr(flags, cols, cap)
             if m is not None:
-                a = _null_extreme_sub(a, ~m, d, nu)
+                a = null_extreme_sub(a, ~m, d, nu)
         return a
 
     # -- subqueries ------------------------------------------------------------
@@ -1637,7 +1619,7 @@ class QueryPlan(StringLowering, NullSemantics):
             ):
                 key_span = kmax - kmin + 1
                 if key_span <= MAX_KEY_SPAN:
-                    fast = (_pad_span(key_span), kmin)
+                    fast = (pad_span(key_span), kmin)
             self._probed_fast = fast
         return self._probed_fast
 
@@ -2042,9 +2024,6 @@ class QueryPlan(StringLowering, NullSemantics):
                 not key.dtype.is_floating_point and key.dtype != torch.bool
                 and key.dtype.itemsize <= 4)
         if self.order_items and top_k_ok:
-            # (imported here: dist_ops imports the plan package)
-            from harkdb_tpu_torch.parallel.dist_ops import _route_order_view
-
             L = min(self.limit + (self.offset or 0), out.capacity)
             # Dead rows (int32 min in the view) must never beat a live row
             # whose view equals int32 min: ties go to the lowest index, so
@@ -2065,7 +2044,7 @@ class QueryPlan(StringLowering, NullSemantics):
                 filter_mask = None
             # top-k takes the largest of the view: the view itself for
             # DESC, the order-reversed view for ASC.
-            view = _route_order_view(key, not d)
+            view = ieee_order_view(key, not d)
             live = torch.arange(out.capacity, dtype=torch.int32,
                                 device=dev) < out.n_valid
             view = torch.where(live, view, torch.iinfo(torch.int32).min)
@@ -2089,7 +2068,7 @@ class QueryPlan(StringLowering, NullSemantics):
                     a = out.columns[f"#out{j}"]
                     nf = out.columns.get(f"#nullflag{j}")
                     if nf is not None:
-                        a = _null_extreme_sub(a, nf == 0, d, nu)
+                        a = null_extreme_sub(a, nf == 0, d, nu)
                     key_arrays.append(a)
                     desc.append(d)
             else:

@@ -13,11 +13,12 @@ Sorts are ``lexsort_permutation`` plus gathers; every pack is
 ``compact_batch`` (kernel A on a card); the run totals of INTERSECT /
 EXCEPT use ``prims.scan`` (kernel B on a card).
 
-On a mesh of several ranks, UNION / UNION ALL run as a sharded tail
-(:meth:`UnionPlan._execute_sharded`): each rank keeps about 1/D of the
-combined rows until the one delivery. INTERSECT / EXCEPT and
-``dist_tail=False`` run each arm over the mesh, deliver it to every rank
-and combine it there, the same small combine on every rank.
+On a mesh the mesh runner decides how a set operation runs: UNION /
+UNION ALL as a sharded tail of its own, which reads the merged
+dictionaries' code remaps, the float target and its span check from here;
+INTERSECT / EXCEPT, and any set operation without ``dist_tail``, through
+:meth:`UnionPlan.execute` with an ``execute`` that delivers each arm whole
+to every rank, where every rank runs the same small combine.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.config import EngineConfig, DEFAULT_CONFIG
 from harkdb_tpu_torch.ops.sort import lexsort_permutation, sort_batch
 from harkdb_tpu_torch.plan.errors import PlanError
-from harkdb_tpu_torch.plan.planner import QueryPlan, _null_extreme_sub
+from harkdb_tpu_torch.plan.nulls import null_extreme_sub
+from harkdb_tpu_torch.plan.planner import QueryPlan
 from harkdb_tpu_torch.prims.compaction import compact_batch
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 from harkdb_tpu_torch.sql.ast_nodes import Col, Lit
@@ -76,12 +78,12 @@ class UnionPlan:
 
         # Position-wise string dictionary merge across arms.
         self.output_dicts = []
-        self._code_remaps = []       # per position: per-arm LUT or None
+        self.code_remaps = []        # per position: per-arm LUT or None
         for j in range(n_out):
             ds = [p.output_dicts[j] for p in self.arms]
             if all(d is None for d in ds):
                 self.output_dicts.append(None)
-                self._code_remaps.append(None)
+                self.code_remaps.append(None)
                 continue
             if any(d is None for d in ds):
                 raise PlanError(
@@ -92,7 +94,7 @@ class UnionPlan:
             for d in ds[1:]:
                 merged = np.union1d(merged, d)
             self.output_dicts.append(merged)
-            self._code_remaps.append([
+            self.code_remaps.append([
                 None if np.array_equal(d, merged)
                 else np.searchsorted(merged, d).astype(np.int32)
                 for d in ds
@@ -130,7 +132,7 @@ class UnionPlan:
         outs = [nm for nm in batch.names if not nm.startswith("#nullflag")]
         for j, internal in enumerate(outs):
             col = batch.columns[internal][:n]
-            remaps = self._code_remaps[j]
+            remaps = self.code_remaps[j]
             if remaps is not None and remaps[ai] is not None:
                 with host_read("upload"):
                     lut = torch.as_tensor(remaps[ai]).to(col.device)
@@ -209,37 +211,26 @@ class UnionPlan:
             keep = start & (ones_in == 0) & (zeros_in > 0)
         return self._pack(scols, keep)
 
-    def execute(self, tables: Dict[str, Table], mesh=None,
-                shard_cache=None) -> ColumnBatch:
+    def execute(self, tables: Dict[str, Table],
+                execute=None) -> ColumnBatch:
+        """Run every arm (through ``execute(plan)`` when given: the mesh
+        runner delivers each arm whole to every rank, so the combine reads
+        the same values, and takes the same branches, on every rank) and
+        combine them."""
         cfg = self.config
-        distributed = mesh is not None and mesh.size > 1
-        if (distributed and cfg.dist_tail
-                and all(op in ("union", "union all") for op in self.ops)):
-            return self._execute_sharded(tables, mesh, shard_cache)
-
-        def run_arm(p: QueryPlan) -> ColumnBatch:
-            if distributed:
-                from harkdb_tpu_torch.parallel.executor import DistExecutor
-
-                # every rank receives the whole arm, so the combine below
-                # reads the same values, and takes the same branches, on
-                # every rank
-                return DistExecutor(p, mesh, cfg,
-                                    shard_cache=shard_cache).execute(tables)
-            return p.execute(tables)
-
         n_out = len(self.output_names)
         acc: List[torch.Tensor] = []
         acc_flags: List[object] = [None] * n_out
         for ai, p in enumerate(self.arms):
-            cols, flags = self._arm_cols(ai, run_arm(p))
+            cols, flags = self._arm_cols(
+                ai, p.execute(tables) if execute is None else execute(p))
             if ai == 0:
                 acc, acc_flags = cols, flags
                 continue
             merged = []
             for a, c in zip(acc, cols):
                 if a.dtype.is_floating_point != c.dtype.is_floating_point:
-                    tgt = self._float_target()
+                    tgt = self.float_target()
                     # Integers beyond the float target's exact-integer span
                     # would silently lose precision in the cast — corrupting
                     # values AND making distinct-dedupe merge unequal rows.
@@ -248,7 +239,7 @@ class UnionPlan:
                         if not x.dtype.is_floating_point and x.shape[0]:
                             with host_read("union"):
                                 lo, hi = int(x.min()), int(x.max())
-                            self._check_span(max(abs(lo), abs(hi)))
+                            self.check_span(max(abs(lo), abs(hi)))
                     a, c = a.to(tgt), c.to(tgt)
                 merged.append(torch.cat([a, c]))
             # NULL indicators concatenate alongside (missing side = all-1)
@@ -309,7 +300,7 @@ class UnionPlan:
                 a = out.columns[f"#out{j}"]
                 f = out.columns.get(f"#nullflag{j}")
                 if f is not None:
-                    a = _null_extreme_sub(a, f == 0, d, nu)
+                    a = null_extreme_sub(a, f == 0, d, nu)
                 key_arrays.append(a)
             out = sort_batch(
                 out, [],
@@ -325,185 +316,19 @@ class UnionPlan:
             )
         return out
 
-    def _float_target(self) -> torch.dtype:
+    def float_target(self) -> torch.dtype:
         return getattr(torch, self.config.float_dtype)
 
-    def _check_span(self, max_abs: int) -> None:
+    def check_span(self, max_abs: int) -> None:
         """Raise when an integer of ``max_abs`` would not survive the cast
         to the float target (int and float arms merged in one column)."""
-        span = 1 << (_MANTISSA_BITS[self._float_target()] + 1)
+        span = 1 << (_MANTISSA_BITS[self.float_target()] + 1)
         if max_abs > span:
             raise PlanError(
                 f"UNION mixes int and float values in a column and an "
                 f"integer exceeds {self.config.float_dtype}'s exact-integer "
                 f"span (±{span}); the cast would corrupt it"
             )
-
-    def _execute_sharded(self, tables: Dict[str, Table], mesh,
-                         shard_cache) -> ColumnBatch:
-        """The UNION tail on a mesh, sharded: arms run to their ranks'
-        projected blocks (``DistExecutor.execute(deliver=False)``) and are
-        concatenated rank by rank; a non-ALL junction dedupes through the
-        tuple-hash ``dist_groupby``; the trailing ORDER BY / OFFSET / LIMIT
-        are ``dist_orderby`` / ``dist_head``; one delivery at the end. Each
-        rank holds about 1/D of the combined rows until then
-        (``last_tail_capacities`` records (stage, this rank's capacity)).
-
-        Order parity with the single-device tail: a hidden ``#upos``
-        column holds each row's position in the arms' concatenation
-        (after a dedupe, which leaves the single device's rows sorted by
-        tuple, the tuple's rank); the final sort's key chain is (ORDER BY
-        outputs, ``#upos``)."""
-        from harkdb_tpu_torch.parallel.dist_ops import (
-            dist_filter, dist_groupby, dist_head, dist_map, dist_orderby,
-            shrink_sharded,
-        )
-        from harkdb_tpu_torch.parallel.executor import DistExecutor
-        from harkdb_tpu_torch.parallel.sharded import ShardedBatch
-
-        cfg = self.config
-        n_out = len(self.output_names)
-        out_names = [f"#out{j}" for j in range(n_out)]
-        caps = []
-
-        # Every arm runs sharded first, so the union-wide set of NULL
-        # indicators is known before any arm is normalised to it.
-        arm_sbs = [DistExecutor(p, mesh, cfg, shard_cache=shard_cache)
-                   .execute(tables, deliver=False) for p in self.arms]
-        nf_idx = sorted({j for sb in arm_sbs for j in range(n_out)
-                         if f"#nullflag{j}" in sb.names})
-        all_names = out_names + [f"#nullflag{j}" for j in nf_idx]
-
-        def positions(sb: ShardedBatch, base: int):
-            """``sb`` with ``#upos`` = base + the row's global live
-            position (rank order), and the live rows over all ranks."""
-            gc = mesh.all_gather(sb.count.reshape(1)).reshape(-1)
-            prefix = gc[:mesh.rank].sum(dtype=torch.int32)
-            cols = dict(sb.columns)
-            cols["#upos"] = base + prefix + torch.arange(
-                sb.local_capacity, dtype=torch.int32, device=prefix.device)
-            return ShardedBatch(cols, sb.count), int(gc.sum())
-
-        def concat(a: ShardedBatch, b: ShardedBatch) -> ShardedBatch:
-            """Rank-wise concatenation, live rows packed first (a's, then
-            b's: kernel A over the joined blocks)."""
-            dev = a.count.device
-            live = torch.cat([
-                torch.arange(a.local_capacity, device=dev) < a.count,
-                torch.arange(b.local_capacity, device=dev) < b.count])
-            both = ShardedBatch(
-                {n: torch.cat([a.columns[n], b.columns[n]])
-                 for n in a.names},
-                torch.full((), live.shape[0], dtype=torch.int32, device=dev))
-            return dist_filter(both, lambda cols, cap: live)
-
-        def dedupe(sb: ShardedBatch):
-            """Distinct tuples in global tuple order, positions renewed
-            (the single-device dedupe leaves rows sorted by (values,
-            flags); NULL cells are zeroed, so NULLs dedupe as equal)."""
-            sb = dist_groupby(ShardedBatch({n: sb.columns[n]
-                                            for n in all_names}, sb.count),
-                              all_names, [], mesh)
-            sb = dist_orderby(sb, lambda cols, cap: [cols[n]
-                                                     for n in all_names],
-                              [False] * len(all_names), mesh)
-            return positions(sb, 0)
-
-        acc = None
-        base = 0
-        for ai, sb in enumerate(arm_sbs):
-            caps.append((f"arm{ai}", sb.local_capacity))
-            # Normalise to the union-wide columns: merged-dictionary code
-            # remaps, all-1 flags where this arm has no indicator, NULL
-            # cells zeroed (one canonical NULL per position).
-            luts = {j: torch.as_tensor(self._code_remaps[j][ai]).to(
-                        mesh.device)
-                    for j in range(n_out)
-                    if self._code_remaps[j] is not None
-                    and self._code_remaps[j][ai] is not None}
-            have = set(sb.names)
-
-            def norm_fn(cols, cap, _luts=luts, _have=have):
-                out = {}
-                for j in range(n_out):
-                    c = cols[f"#out{j}"]
-                    lut = _luts.get(j)
-                    if lut is not None:
-                        c = lut[torch.clamp(c, 0, lut.shape[0] - 1).long()]
-                    out[f"#out{j}"] = c
-                for j in nf_idx:
-                    fname = f"#nullflag{j}"
-                    if fname in _have:
-                        fl = (cols[fname] != 0).to(torch.int32)
-                        out[fname] = fl
-                        c = out[f"#out{j}"]
-                        out[f"#out{j}"] = torch.where(fl != 0, c,
-                                                      torch.zeros_like(c))
-                    else:
-                        out[fname] = torch.ones(cap, dtype=torch.int32,
-                                                device=mesh.device)
-                return out
-
-            sb, n_arm = positions(dist_map(sb, norm_fn), base)
-            base += n_arm
-            if acc is None:
-                acc = sb
-                continue
-            # int / float promotion, guarded by the exact-integer span read
-            # from an all-reduced maximum (the same on every rank)
-            casts = []
-            for j in range(n_out):
-                name = f"#out{j}"
-                a_, c_ = acc.columns[name], sb.columns[name]
-                if a_.dtype.is_floating_point == c_.dtype.is_floating_point:
-                    continue
-                for part in (acc, sb):
-                    x = part.columns[name]
-                    if not x.dtype.is_floating_point:
-                        live = torch.arange(x.shape[0],
-                                            device=x.device) < part.count
-                        m = torch.where(live, x.to(torch.int64).abs(),
-                                        0).max()
-                        self._check_span(int(mesh.all_reduce(m.reshape(1),
-                                                             "max")))
-                casts.append(name)
-            if casts:
-                tgt = self._float_target()
-
-                def cast_fn(cols, cap, _c=tuple(casts)):
-                    return {n: c.to(tgt) if n in _c else c
-                            for n, c in cols.items()}
-
-                acc, sb = dist_map(acc, cast_fn), dist_map(sb, cast_fn)
-            acc = shrink_sharded(concat(acc, sb), mesh)
-            caps.append((f"concat{ai}", acc.local_capacity))
-            if self.ops[ai - 1] == "union":
-                acc, base = dedupe(acc)
-                caps.append((f"dedupe{ai}", acc.local_capacity))
-
-        # The final global order: the trailing ORDER BY's outputs (NULL
-        # placement by the indicators), ties by #upos — the single-device
-        # stable sort over the concatenation / dedupe order.
-        order_pos = list(self.order_pos)
-
-        def final_keys(cols, cap):
-            ks = []
-            for j, d, nu in order_pos:
-                a = cols[f"#out{j}"]
-                f = cols.get(f"#nullflag{j}")
-                if f is not None:
-                    a = _null_extreme_sub(a, f == 0, d, nu)
-                ks.append(a)
-            return ks + [cols["#upos"]]
-
-        acc = dist_orderby(acc, final_keys,
-                           [d for _j, d, _nu in order_pos] + [False], mesh)
-        if self.offset or self.limit is not None:
-            acc = dist_head(acc, self.offset or 0, self.limit, mesh)
-        caps.append(("deliver", acc.local_capacity))
-        self.last_tail_capacities = caps
-        return ShardedBatch({n: acc.columns[n] for n in all_names},
-                            acc.count).to_batch_device(mesh)
 
     def explain(self) -> str:
         lines = []

@@ -15,11 +15,12 @@ distinct (PARTITION BY, ORDER BY) shape plus one shared restore step:
 
 Per-function logic: row_number / rank / dense_rank via running-max-filled
 starts (``prims.scan``, kernel B on a card); running aggregates as
-inclusive segmented scans (``ops.groupby._scan``, kernel B on a card); the
-SQL default RANGE frame (peers included) broadcasts each tie-run's last
-scanned value by a gather at the run's end, found with a reversed running
-min; lag/lead as ROWS-based shifts with a validity-isolated partition-id
-guard; bounded ROWS-frame min/max from log-shift windows.
+inclusive segmented scans (``kernels.segscan.agg_segscan``, kernel B on a
+card); the SQL default RANGE frame (peers included) broadcasts each
+tie-run's last scanned value by a gather at the run's end, found with a
+reversed running min; lag/lead as ROWS-based shifts with a
+validity-isolated partition-id guard; bounded ROWS-frame min/max from
+log-shift windows.
 
 Kept from the JAX package, faults included: window aggregates ignore the
 NULL validity of their argument.
@@ -32,6 +33,10 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
+from harkdb_tpu_torch.kernels.segscan import agg_neutral, agg_segscan
+from harkdb_tpu_torch.ops.sort import (
+    descending_transform, lexsort_permutation,
+)
 from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
 from harkdb_tpu_torch.prims.scan import running_max, running_min
@@ -111,11 +116,6 @@ def compute_windows(plan, batch: ColumnBatch,
     caller's ORDER BY sort are skipped (``presorted=True``). Distributed
     callers pass False: the executor's distributed sort restores the
     order of each rank's rows."""
-    from harkdb_tpu_torch.ops.groupby import _neutral_py, _scan
-    from harkdb_tpu_torch.ops.sort import (
-        _descending_transform, lexsort_permutation,
-    )
-
     cap = batch.capacity
     dev = batch.device
     cols = dict(batch.columns)
@@ -189,7 +189,7 @@ def compute_windows(plan, batch: ColumnBatch,
                 # value-preserving; keep a dedicated slot.
                 a = eval_expr(oe, cols, cap, plan.config)
                 key = (gi, "od", j)
-                state[key] = _descending_transform(a)
+                state[key] = descending_transform(a)
                 order_keys.append(key)
             else:
                 order_keys.append(_slot(gi, "o", j, oe))
@@ -263,7 +263,7 @@ def compute_windows(plan, batch: ColumnBatch,
             return _plen_memo[0]
 
         def pscan(opname, x):
-            return _scan(opname, sid_p, [x])[0]
+            return agg_segscan(opname, sid_p, [x])[0]
 
         # ---- explicit ROWS frames ----------------------------------------
         ssid_w = torch.where(valid, sid_p, -7)
@@ -294,7 +294,7 @@ def compute_windows(plan, batch: ColumnBatch,
             """min/max over the last L rows within the partition: log2(L)
             doubling passes build partition-clamped pow2 windows, then two
             overlapping windows cover L (idempotent ops)."""
-            ne = _neutral_py(opname, x.dtype)
+            ne = agg_neutral(opname, x.dtype)
             op = _SCAN[opname]
             m = torch.where(keep, x, ne)
             w = 1
@@ -371,7 +371,7 @@ def compute_windows(plan, batch: ColumnBatch,
                 return part_last(pscan(func, x)), n_f
             if lo is None:
                 PS = pscan(func, x)
-                ne = _neutral_py(func, x.dtype)
+                ne = agg_neutral(func, x.dtype)
                 total = part_last(PS)
                 hv = shift_rel(PS, hi, ne)
                 val = torch.where(pos + hi >= plen_, total, hv)
@@ -406,9 +406,9 @@ def compute_windows(plan, batch: ColumnBatch,
                     # to the partition start (where the whole-partition
                     # value = the suffix at the first row applies).
                     x = state[arg_slot[si]]
-                    ne = _neutral_py(func, x.dtype)
+                    ne = agg_neutral(func, x.dtype)
                     rev_sid = torch.flip(_BIG - safe_part, [0])
-                    sfx = torch.flip(_scan(
+                    sfx = torch.flip(agg_segscan(
                         func, rev_sid,
                         [torch.flip(torch.where(valid, x, ne), [0])],
                     )[0], [0])               # sfx[i] = op over [i, pend]

@@ -19,9 +19,9 @@ The operators ``torch.add``, ``torch.maximum``, ``torch.minimum`` and
 flags; a reduce then packs the segment ends with kernel A; the expansion is
 kernel D (``replicated_iota``) and the in-segment positions kernel B over
 one segment (``segmented_iota``). Types narrower than 4 bytes scan widened
-to int32 / float32 (``ops.groupby._scan``); on a CUDA tensor an 8-byte
-type raises (the kernel scans 32-bit words; the JAX package without x64
-never makes one). Any other callable takes a plain log-doubling scan over
+to int32 / float32 (``kernels.segscan.agg_segscan``); on a CUDA tensor an
+8-byte type raises (the kernel scans 32-bit words; the JAX package without
+x64 never makes one). Any other callable takes a plain log-doubling scan over
 (flag, value) pairs on either device, as the JAX package takes
 ``lax.associative_scan`` (``_generic_segmented_scan``), which is no Pallas
 kernel either. Integer results equal the JAX package's bit for bit; a
@@ -35,33 +35,10 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from harkdb_tpu_torch.kernels.segscan import (
+    agg_segscan, doubling_segmented_scan,
+)
 from harkdb_tpu_torch.prims.compaction import _count, compact_arrays
-
-
-def doubling_segmented_scan(op: Callable, sid: torch.Tensor,
-                            values: torch.Tensor) -> torch.Tensor:
-    """Inclusive segmented scan via log-step doubling (Hillis–Steele).
-
-    ``sid`` assigns each row a segment id; rows of a segment must be
-    contiguous (the caller has sorted by key). ``values`` is ``(n,)`` or
-    ``(n, k)`` — columns scan independently under the shared ``sid``.
-    Out-of-range predecessors read id -1 and value 0, exactly as the JAX
-    version does, so results match it bit for bit (float sums combine in
-    the same order).
-    """
-    n = values.shape[0]
-    out = values
-    d = 1
-    while d < n:
-        prev_sid = torch.cat([sid.new_full((d,), -1), sid[:-d]])
-        prev = torch.cat([out.new_zeros((d,) + tuple(out.shape[1:])),
-                          out[:-d]])
-        same = sid == prev_sid
-        if out.dim() > 1:
-            same = same[:, None]
-        out = torch.where(same, op(out, prev), out)
-        d *= 2
-    return out
 
 
 #: Operators kernel B scans, by the GROUP BY's name for them.
@@ -98,11 +75,7 @@ def _scan(op: Callable, flags: torch.Tensor,
                 f"segmented {name} of {values.dtype} on the card: kernel B "
                 f"scans types of at most 4 bytes")
         return doubling_segmented_scan(op, sid, values)
-    # (imported here: ops.groupby imports kernel B's module, which imports
-    # this one)
-    from harkdb_tpu_torch.ops.groupby import _scan as kernel_scan
-
-    return kernel_scan(name, sid, [values])[0]
+    return agg_segscan(name, sid, [values])[0]
 
 
 def _fill(ne, like: torch.Tensor) -> torch.Tensor:

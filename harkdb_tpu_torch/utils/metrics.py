@@ -14,7 +14,7 @@ observability story is one stray debug print (``parse.py:57``).
 * :func:`inner_plan`: around each run of an inner plan (a derived table's
   or a subquery's): counts it and opens ``hark.subquery``.
 * :func:`count_sort`: the rows and bits of every order word sorted
-  (``ops.sort.sort_pairs``).
+  (``kernels.radix_sort.sort_pairs``).
 """
 
 from __future__ import annotations
@@ -112,9 +112,10 @@ class QueryMetrics:
     # Inner plans (derived tables, subqueries) the query ran, nested ones
     # included: each runs on every execution, a cached plan's too.
     inner_plans_run: int = 0
-    # Rows of the order words the query sorted (``ops.sort.sort_pairs``:
-    # joins, group-bys, ORDER BY and the other sorted operators), and those
-    # rows times the bits each sort covered.
+    # Rows of the order words the query sorted
+    # (``kernels.radix_sort.sort_pairs``: joins, group-bys, ORDER BY and the
+    # other sorted operators), and those rows times the bits each sort
+    # covered.
     sort_rows: int = 0
     sort_row_bits: int = 0
     # ``torch.cuda.memory_allocated`` as the query returns, less the bytes

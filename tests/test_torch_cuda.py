@@ -498,9 +498,9 @@ def test_public_ops_on_card_match_cpu(cuda):
 @pytest.mark.parametrize("cls", ["word32", "word40", "two_words"])
 @pytest.mark.parametrize("n", [0, 1, 4095, 4097, (1 << 20) + 3, 1 << 25])
 def test_pair_sort_on_card_equals_plain_twin(cuda, n, cls):
-    """The library's radix pair sort (``ops/sort.sort_pairs``) against its
-    plain twin on the CPU, bit for bit in sorted words and values: one
-    32-bit word, one 40-bit word, and two words through
+    """The library's radix pair sort (``kernels/radix_sort.sort_pairs``)
+    against its plain twin on the CPU, bit for bit in sorted words and
+    values: one 32-bit word, one 40-bit word, and two words through
     ``lexsort_permutation``."""
     import chip_smoke
     from harkdb_tpu_torch.ops import sort as S
@@ -511,6 +511,7 @@ def test_pair_sort_on_card_equals_plain_twin(cuda, n, cls):
 def test_lexsort_on_card_never_calls_torch_sort(cuda, monkeypatch):
     """On a CUDA tensor every word goes through the library's pair sort;
     ``torch.sort`` (the plain twin's) is never called."""
+    from harkdb_tpu_torch.kernels import radix_sort as R
     from harkdb_tpu_torch.ops import sort as S
 
     g = torch.Generator(device=cuda)
@@ -525,13 +526,13 @@ def test_lexsort_on_card_never_calls_torch_sort(cuda, monkeypatch):
         raise AssertionError("torch.sort ran on the card's sort path")
 
     monkeypatch.setattr(torch, "sort", refuse)
-    before = S.LAUNCHES
+    before = R.LAUNCHES
     for keys in ([k], [flag, k], [f], [wide], [k, k], [flag, f, wide]):
         perm = S.lexsort_permutation(keys)
         assert perm.dtype == torch.int32 and perm.is_cuda
     S.lexsort_permutation([k], torch.arange(5000, dtype=torch.int32,
                                             device=cuda))
-    assert S.LAUNCHES - before == 1 + 1 + 1 + 1 + 2 + 2 + 1
+    assert R.LAUNCHES - before == 1 + 1 + 1 + 1 + 2 + 2 + 1
 
 
 def test_join_ranges_on_card_match_cpu(cuda):

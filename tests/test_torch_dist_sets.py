@@ -14,8 +14,9 @@ ranks (``torch_mesh_pool``); every rank's ``sql_df`` frame must equal
 bit for bit, NULLs in the same places, the float column of the int /
 float UNION (``avg(v)`` merged with an int column) within rtol 1e-6.
 
-Beside them, the sharded UNION tail (``UnionPlan._execute_sharded``)
-against JAX's on the same tables, and the analog of
+Beside them, the sharded UNION tail (the port's
+``parallel.executor.union_tail``) against JAX's
+(``UnionPlan._execute_sharded``) on the same tables, and the analog of
 ``test_union_all_memory_stays_sharded``: a UNION ALL of 2^16 rows keeps
 every rank's capacity at every stage of the tail within 2/D of the
 combined rows (``last_tail_capacities``).
@@ -188,7 +189,8 @@ def test_derived_distributed_matches_jax(pool, jmesh):
 
 
 def test_sharded_union_tail_module_matches_jax(pool, jmesh):
-    """``UnionPlan._execute_sharded`` against JAX's on the same tables:
+    """``parallel.executor.union_tail`` against JAX's
+    ``UnionPlan._execute_sharded`` on the same tables:
     UNION ALL under a trailing ORDER BY, and UNION's dedupe junction."""
     t = _ab()
     for sql in ["select k, v from a union all select k, v from b "

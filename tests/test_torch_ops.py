@@ -37,7 +37,7 @@ from harkdb_tpu_torch.ops.sort import sort_batch, sort_permutation
 from harkdb_tpu_torch.plan.aggregates import apply_post_computes
 from harkdb_tpu_torch.plan.expr import eval_expr
 from harkdb_tpu_torch.prims.compaction import compact_arrays, compact_batch
-from harkdb_tpu_torch.prims.segmented import doubling_segmented_scan
+from harkdb_tpu_torch.kernels.segscan import doubling_segmented_scan
 from harkdb_tpu_torch.sql import ast_nodes as T
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
@@ -1027,6 +1027,7 @@ def test_pair_sort_matches_numpy_stable_order(cls, mix, carry):
     in input order, INT32_MIN / INT32_MAX, ±0.0 and NaN included), as the
     int32 permutation or as the sorted last word and carried values; and
     ``sort_batch`` puts pad rows last."""
+    from harkdb_tpu_torch.kernels import radix_sort as R
     from harkdb_tpu_torch.ops import sort as S
 
     rng = np.random.default_rng(len(_SORT_CASES) * carry
@@ -1049,7 +1050,7 @@ def test_pair_sort_matches_numpy_stable_order(cls, mix, carry):
     values[:2] = (I32_MIN, I32_MAX)
     for w, b in words:
         for low in (b, max(1, b - 5)):          # its own bits, and fewer
-            got_w, got_v = S.sort_pairs(w.clone(), low,
+            got_w, got_v = R.sort_pairs(w.clone(), low,
                                         torch.from_numpy(values))
             order = np.argsort(_unsigned(w, low), kind="stable")
             np.testing.assert_array_equal(got_w.numpy(), w.numpy()[order])

@@ -3,7 +3,8 @@ on the CPU.
 
 For one ORDER BY key that is an int of up to 4 bytes or a float32, with
 ``limit + offset <= 1024``, no DISTINCT and no presorted order, both
-packages select rows by top-k over ``_route_order_view`` of the key
+packages select rows by top-k over a view of the key by its IEEE bits
+(JAX's ``_route_order_view``, the port's ``ops.sort.ieee_order_view``)
 instead of sorting (``harkdb_tpu/plan/planner.py:2053-2111``). The view
 orders floats by their IEEE bits: a NaN with its sign bit set ranks below
 -inf, and a positive NaN above +inf under DESC too, where the full sort
@@ -28,8 +29,8 @@ import harkdb_tpu
 import harkdb_tpu_torch
 from harkdb_tpu.parallel.dist_ops import _route_order_view as jax_view
 from harkdb_tpu_torch.columnar.table import Table
+from harkdb_tpu_torch.ops.sort import ieee_order_view
 from harkdb_tpu_torch.ops.topk import top_k_indices, top_k_indices_reference
-from harkdb_tpu_torch.parallel.dist_ops import _route_order_view
 from harkdb_tpu_torch.plan import planner
 from torch_topk_cases import (
     I32_MAX, I32_MIN, QUERIES, assert_same, special_floats, tables,
@@ -170,7 +171,7 @@ def test_top_k_indices_rejects_what_it_cannot_order():
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.float32])
 @pytest.mark.parametrize("descending", [False, True])
 def test_view_and_selection_match_jax_per_dtype(dtype, descending):
-    """``_route_order_view`` and the selection over it, per key dtype the
+    """``ieee_order_view`` and the selection over it, per key dtype the
     gate admits, against JAX's view and ``lax.top_k``."""
     rng = np.random.default_rng(np.dtype(dtype).itemsize)
     n = 5000
@@ -181,7 +182,7 @@ def test_view_and_selection_match_jax_per_dtype(dtype, descending):
         key = rng.integers(info.min, int(info.max) + 1, n).astype(dtype)
         key[:4] = [info.min, info.max, info.min, info.max]
     want_view = np.asarray(jax_view(jnp.asarray(key), descending))
-    got_view = _route_order_view(torch.from_numpy(key), descending)
+    got_view = ieee_order_view(torch.from_numpy(key), descending)
     np.testing.assert_array_equal(got_view.numpy(), want_view)
     want = np.asarray(jax.lax.top_k(jnp.asarray(want_view), 300)[1])
     np.testing.assert_array_equal(top_k_indices(got_view, 300).numpy(),

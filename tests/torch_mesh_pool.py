@@ -161,9 +161,9 @@ def run_sql(mesh, tables, queries, cfg=None, frames=False,
     ``views`` (name → SELECT) are created after the tables.
     ``frames`` gives ``sql_df``'s frame instead of ``sql``'s matrix;
     ``capacities`` adds ``last_tail_capacities`` (the ``DistExecutor``'s,
-    or the ``UnionPlan``'s sharded tail's)."""
+    or the one the sharded UNION tail leaves on the ``UnionPlan``)."""
     from harkdb_tpu_torch import Context, EngineConfig
-    from harkdb_tpu_torch.parallel.executor import DistExecutor
+    from harkdb_tpu_torch.parallel.executor import DistExecutor, run_on_mesh
     from harkdb_tpu_torch.plan.union_plan import UnionPlan
 
     config = EngineConfig(**(cfg or {}))
@@ -185,8 +185,8 @@ def run_sql(mesh, tables, queries, cfg=None, frames=False,
         if capacities:
             if isinstance(plan, UnionPlan):
                 ex = plan
-                plan.execute(ctx.tables, mesh=mesh,
-                             shard_cache=ctx._shard_cache)
+                run_on_mesh(plan, ctx.tables, mesh, config,
+                            ctx._shard_cache)
             else:
                 ex = DistExecutor(plan, mesh, config,
                                   shard_cache=ctx._shard_cache)
@@ -289,15 +289,16 @@ def window_blocks(mesh, tables, sql, table, form):
 
 
 def union_tail(mesh, tables, sql):
-    """``UnionPlan._execute_sharded`` of ``sql`` over ``Context(mesh=...)``
+    """``parallel.executor.union_tail`` of ``sql`` over ``Context(mesh=...)``
     tables: the delivered live rows and ``last_tail_capacities``."""
     from harkdb_tpu_torch import Context
+    from harkdb_tpu_torch.parallel.executor import union_tail
 
     ctx = Context(mesh=mesh)
     for name, src in tables.items():
         ctx.create_table(name, src)
     plan = ctx._plan(sql)
-    b = plan._execute_sharded(ctx.tables, mesh, ctx._shard_cache)
+    b = union_tail(plan, ctx.tables, mesh, ctx.config, ctx._shard_cache)
     n = int(b.n_valid)
     return ({c: _np(v)[:n] for c, v in b.columns.items()},
             plan.last_tail_capacities)
