@@ -112,7 +112,18 @@ Phases, each printing its results on lines of its own:
      for bit; then each at 120,000,000 rows timed by CUDA events beside
      its bound (histogram read plus digit passes of key and value, read
      and written, at 3.35 TB/s) and ``torch.sort`` over the same words
-     widened to int64 (the port's sort before), whose order it equals.
+     widened to int64 (the port's sort before), whose order it equals;
+ 14. the join's count phase around the pair sort (``kernels/join_runs.py``,
+     ``csrc/join_runs.cu``): the words kernel and the runs kernel against
+     their plain versions on the CPU, bit for bit (``total_approx`` within
+     1e-5 relative), at lengths around the 2048-row tiles, runs over many
+     tiles, one run over the whole array (a 65536² CROSS JOIN, whose totals
+     wrap to 0), NULL codes and 120,000,000 + 2,557 rows; then each kernel
+     at SSB SF 20's lineorder against date (120,000,000 + 2,557 rows) and
+     TPC-H SF 10's lineitem against orders (60,000,000 + 15,000,000), timed
+     by CUDA events beside its bound (each byte its work needs read once
+     and written once, at 3.35 TB/s) and its plain version on the card,
+     and the whole count phase (``compute_join_ranges``) timed.
 
 Then it prints one JSON line describing the kernels, the card line again,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -2230,6 +2241,8 @@ PLAIN_VERSIONS = (
     ("prims.segmented", "doubling_segmented_scan"),
     ("prims.segmented", "_pair_scan"),
     ("kernels.radix_sort", "sort_pairs_reference"),
+    ("kernels.join_runs", "join_words_reference"),
+    ("kernels.join_runs", "join_runs_reference"),
 )
 
 
@@ -2712,8 +2725,8 @@ def public_ops_cases(torch, n: int):
                                          f.n_valid, [False, True])
         return {"perm": perm}
 
-    ranges = {"flat_compact": 2, "flat_segscan_one_segment": 1}
-    pairs = dict(ranges, flat_compact=3, expand_fills=1)
+    ranges = {"join_words": 1, "join_runs": 1}
+    pairs = dict(ranges, flat_compact=1, expand_fills=1)
     cases = [("entry_step", lambda b: entry_step(b["facts"]),
               {"flat_compact": 2, "flat_segscan": 1})]
     for kind in ("inner", "left"):
@@ -3001,6 +3014,196 @@ def phase_pair_sort(torch, dev, n: int = PAIR_SORT_N) -> list:
     return rows
 
 
+# -- phase 14: the join's count phase around the pair sort (kernels E) -------
+
+# (left capacity, right capacity, live left, live right, key span, NULL
+# flags): lengths around the runs kernel's 2048-row tiles, sides without
+# rows, runs over many tiles, the whole array one run (a 65536² CROSS JOIN:
+# 2^32 pairs, so both int32 totals wrap to 0), NULL codes, and SSB SF 20's
+# lineorder against date.
+JOIN_RUNS_EDGES = (
+    (0, 1, 0, 1, 4, False),
+    (1, 0, 1, 0, 4, False),
+    (1000, 1047, 1000, 1047, 50, False),
+    (1025, 1024, 1000, 1024, 50, False),
+    (4097, 0, 4000, 0, 8, False),
+    (3000, 1097, 3000, 1000, 8, True),
+    (0, 5000, 0, 0, 8, True),
+    ((1 << 20) + 3, 5000, (1 << 20) - 7, 4990, 3, False),
+    ((1 << 20) + 3, 5000, 1 << 19, 0, 100, True),
+    (65536, 65536, 65536, 65536, 1, False),
+    (PAIR_SORT_N, 2_557, PAIR_SORT_N - 5, 2_557, 2_557, False),
+)
+# SSB SF 20's lineorder against date, and TPC-H SF 10's lineitem against
+# orders: the count phases of the cells' largest joins (facts left, every
+# fact key a live dimension key).
+JOIN_RUNS_SHAPES = ((PAIR_SORT_N, 2_557), (60_000_000, 15_000_000))
+JOIN_APPROX_RTOL = 1e-5
+
+
+def join_runs_inputs(torch, dev, nl, nr, n_l, n_r, span, nulls, seed):
+    """``(l_key, n_l, r_key, n_r, l_null, r_null)`` on ``dev``: int32 keys
+    over ``[0, span)`` (INT32_MAX and INT32_MIN among them where the span
+    is over 2), live counts as 0-d int32 tensors, NULL flags on 5% of the
+    rows of each side or None."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def key(n):
+        k = torch.randint(0, span, (n,), dtype=torch.int32, device=dev,
+                          generator=g)
+        if span > 2:
+            k[::97] = 2**31 - 1
+            k[1::101] = -2**31
+        return k
+
+    def flags(n):
+        return (torch.rand(n, device=dev, generator=g) < 0.05
+                if nulls else None)
+
+    def count(v):
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    return key(nl), count(n_l), key(nr), count(n_r), flags(nl), flags(nr)
+
+
+def check_join_runs(torch, dev, nl, nr, n_l, n_r, span, nulls, seed) -> dict:
+    """The words kernel, the pair sort and the runs kernel on the card
+    against the plain versions of both kernels on the CPU (fed the card's
+    sorted word and tag), bit for bit but ``total_approx`` (within
+    ``JOIN_APPROX_RTOL``): the words and tags, the live rows of
+    ``l_orig``, ``lo`` and ``r_orig``, the counts whole, the live lefts and
+    both int32 totals. Returns the card's totals; raises on a difference
+    or a missing launch."""
+    from harkdb_tpu_torch.kernels import join_runs as K
+    from harkdb_tpu_torch.kernels import radix_sort as R
+
+    what = f"join runs {nl:,} + {nr:,} rows, span {span}, nulls {nulls}"
+    args = join_runs_inputs(torch, dev, nl, nr, n_l, n_r, span, nulls, seed)
+    cpu = [None if a is None else a.cpu() for a in args]
+    before = (K.WORDS_LAUNCHES, K.RUNS_LAUNCHES)
+    word, bits, tag = K.join_words(*args)
+    want = K.join_words_reference(*cpu)
+    if (bits != want[1] or not torch.equal(word.cpu(), want[0])
+            or not torch.equal(tag.cpu(), want[2])):
+        raise AssertionError(f"{what}: words or tags differ from the plain "
+                             f"version")
+    sword, stag = R.sort_pairs(word, bits, tag)
+    got = K.join_runs(sword, stag, nl, args[1])
+    ref = K.join_runs_reference(sword.cpu(), stag.cpu(), nl, cpu[1])
+    torch.cuda.synchronize()
+    if nl + nr and (K.WORDS_LAUNCHES, K.RUNS_LAUNCHES) != (before[0] + 1,
+                                                          before[1] + 1):
+        raise AssertionError(f"{what}: the kernels did not launch")
+    n_lefts, n_rights = min(n_l, nl), min(n_r, nr)
+    for name, live in (("l_orig", n_lefts), ("counts", nl), ("lo", n_lefts),
+                       ("r_orig", n_rights)):
+        a, b = getattr(got, name), getattr(ref, name)
+        if not torch.equal(a[:live].cpu(), b[:live]):
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 f"version")
+    for name in ("n_lefts", "total", "total_left"):
+        a, b = getattr(got, name), getattr(ref, name)
+        if a.dtype != torch.int32 or int(a) != int(b):
+            raise AssertionError(f"{what}: {name} {int(a)} against "
+                                 f"{int(b)}")
+    if int(got.n_lefts) != n_lefts:
+        raise AssertionError(f"{what}: {int(got.n_lefts)} live lefts")
+    approx, want_approx = float(got.total_approx), float(ref.total_approx)
+    if abs(approx - want_approx) > JOIN_APPROX_RTOL * max(1.0, want_approx):
+        raise AssertionError(f"{what}: total_approx {approx} against "
+                             f"{want_approx}")
+    return {"total": int(got.total), "total_left": int(got.total_left),
+            "total_approx": approx}
+
+
+def join_words_bytes(nl, nr, n_l, n_r, nulls) -> int:
+    """The words kernel's work: each live key read (a pad's is not), the
+    NULL flags read, a word and a tag written for every row."""
+    n = nl + nr
+    return 4 * (n_l + n_r) + (n if nulls else 0) + n * ((8 if nulls else 4)
+                                                        + 4)
+
+
+def join_runs_bytes(nl, nr, n_l, n_r, word_bytes) -> int:
+    """The runs kernel's work: every sorted word and tag read; per live
+    left its row, count and first match written, per live right its row,
+    a zero count for every left row past the live ones, the four totals."""
+    n = nl + nr
+    return n * (word_bytes + 4) + 12 * n_l + 4 * n_r + 4 * (nl - n_l) + 16
+
+
+def phase_join_runs(torch, dev) -> list:
+    """Phase 14: both kernels against their plain versions at
+    ``JOIN_RUNS_EDGES``, then at each of ``JOIN_RUNS_SHAPES``: each wrapper
+    timed by CUDA events (mean of 20 calls behind a device sleep) and by
+    torch.profiler (the kernel alone), its bound (``join_*_bytes`` at the
+    card's rate), its plain version on the card, the pair sort between
+    them, and ``compute_join_ranges`` whole."""
+    from harkdb_tpu_torch.kernels import join_runs as K
+    from harkdb_tpu_torch.kernels import radix_sort as R
+    from harkdb_tpu_torch.ops import join as J
+
+    for i, case in enumerate(JOIN_RUNS_EDGES):
+        totals = check_join_runs(torch, dev, *case, seed=1400 + i)
+        if case[4] == 1:                     # the CROSS JOIN
+            pairs = float(case[2]) * case[3]
+            if (totals["total"], totals["total_left"]) != (0, 0) or abs(
+                    totals["total_approx"] - pairs) > JOIN_APPROX_RTOL * pairs:
+                raise AssertionError(f"CROSS JOIN totals {totals}")
+        torch.cuda.empty_cache()
+    log(f"phase 14 join runs: {len(JOIN_RUNS_EDGES)} edge cases up to "
+        f"{PAIR_SORT_N:,} + 2,557 rows, the 65536² CROSS JOIN's totals "
+        f"wrapping to 0: bit-exact against the plain versions")
+    rows = []
+    for nl, nr in JOIN_RUNS_SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(14)
+        l_key = torch.randint(0, nr, (nl,), dtype=torch.int32, device=dev,
+                              generator=g)
+        r_key = torch.randperm(nr, dtype=torch.int32, device=dev,
+                               generator=g)
+        n_l, n_r = (torch.full((), v, dtype=torch.int32, device=dev)
+                    for v in (nl, nr))
+        word, bits, tag = K.join_words(l_key, n_l, r_key, n_r)
+        sword, stag = R.sort_pairs(word.clone(), bits, tag.clone())
+        entry = {"rows": [nl, nr], "bits": bits}
+        for name, call, plain, nbytes, kernel in (
+                ("join_words",
+                 lambda: K.join_words(l_key, n_l, r_key, n_r),
+                 lambda: K.join_words_reference(l_key, n_l, r_key, n_r),
+                 join_words_bytes(nl, nr, nl, nr, False),
+                 "join_words_kernel"),
+                ("join_runs", lambda: K.join_runs(sword, stag, nl, n_l),
+                 lambda: K.join_runs_reference(sword, stag, nl, n_l),
+                 join_runs_bytes(nl, nr, nl, nr, 4), "join_runs_kernel")):
+            ms = time_cuda(torch, call)
+            # None where the profiler recorded no such kernel (seen late
+            # in a whole run of this script, after many profiled phases)
+            alone = kernel_only_ms(torch, call, kernel) or None
+            plain_ms = time_cuda(torch, plain, iters=3, warmup=1)
+            bound = nbytes / HBM_BYTES_PER_MS
+            entry[name] = {"ms": ms, "kernel_ms": alone, "bytes": nbytes,
+                           "bound_ms": bound, "bound_share": bound / ms,
+                           "kernel_bound_share": alone and bound / alone,
+                           "plain_ms": plain_ms}
+            log(f"phase 14 {name} at {nl:,} + {nr:,} rows: {ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({bound / ms:.3f} of it); kernel "
+                f"alone {alone} ms; plain version on the card "
+                f"{plain_ms:.4f} ms")
+        entry["sort_ms"], _ = _fresh_event_ms(
+            torch, lambda w, t: R.sort_pairs(w, bits, t), [word, tag])
+        entry["count_phase_ms"], _ = median_event_ms(
+            torch, lambda: J.compute_join_ranges(l_key, n_l, r_key, n_r))
+        log(f"phase 14 count phase at {nl:,} + {nr:,} rows: "
+            f"compute_join_ranges {entry['count_phase_ms']:.4f} ms, of "
+            f"which the pair sort {entry['sort_ms']:.4f} ms")
+        rows.append(entry)
+        del l_key, r_key, word, tag, sword, stag
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compact_bytes(torch, n_cols, mask, n_valid) -> int:
     """Bytes kernel A's work must move: the mask, each 32-byte sector (8
     rows) of each column that holds a kept row, and each kept word out."""
@@ -3080,7 +3283,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import harkdb_tpu_torch as H
     from harkdb_tpu_torch.kernels import (
-        _lib, compact, expand, matmul_agg, segscan,
+        _lib, compact, expand, join_runs, matmul_agg, segscan,
     )
     from harkdb_tpu_torch.columnar.batch import ColumnBatch
     from harkdb_tpu_torch.ops.groupby import groupby_batch
@@ -3143,7 +3346,9 @@ def main() -> int:
                 "flat_segscan_one_segment": (segscan,
                                              "ONE_SEGMENT_LAUNCHES"),
                 "onehot_groupby_sums": (matmul_agg, "LAUNCHES"),
-                "expand_fills": (expand, "LAUNCHES")}
+                "expand_fills": (expand, "LAUNCHES"),
+                "join_words": (join_runs, "WORDS_LAUNCHES"),
+                "join_runs": (join_runs, "RUNS_LAUNCHES")}
     ctx, launches = run_query_check(torch, H, counters, N_MAIN, MAIN_QUERY,
                                     0)
     main_ms, main_all = time_query(torch, ctx, MAIN_QUERY)
@@ -3167,8 +3372,8 @@ def main() -> int:
     star, star_launches = run_join_check(
         torch, H, counters, {"facts": facts, "dims": dims}, STAR_QUERY,
         star_oracle(facts, dims),
-        {"flat_compact": 4, "onehot_groupby_sums": 1, "expand_fills": 1,
-         "flat_segscan_one_segment": 1},
+        {"flat_compact": 3, "onehot_groupby_sums": 1, "expand_fills": 1,
+         "join_words": 1, "join_runs": 1},
         f"star join ({N_MAIN:,} facts x {N_KEYS:,} dims)")
     plan = star._plan(STAR_QUERY)
     if plan.last_fast_span != DIM_SPAN:
@@ -3186,7 +3391,8 @@ def main() -> int:
     tpch = q3_data()
     q3, q3_launches = run_join_check(
         torch, H, counters, tpch, Q3_QUERY, q3_oracle(tpch),
-        {"flat_compact": 1, "expand_fills": 2},
+        {"flat_compact": 1, "expand_fills": 2, "join_words": 2,
+         "join_runs": 2},
         f"TPC-H Q3 ({N_LINEITEM:,} lineitem, {N_ORDERS:,} orders, "
         f"{N_CUSTOMER:,} customer)")
     del tpch
@@ -3216,6 +3422,9 @@ def main() -> int:
 
     # -- phase 13: the radix pair sort under the sorted operators ------------
     pair_sort = phase_pair_sort(torch, dev)
+
+    # -- phase 14: the join's count phase around the pair sort ---------------
+    join_count = phase_join_runs(torch, dev)
 
     # -- phase 8: kernels against their plain versions, bounds, library calls ---
     cols = {"k": k, "v": v}
@@ -3378,7 +3587,8 @@ def main() -> int:
                      "star_join": star_launches, "tpch_q3_sf1": q3_launches,
                      **nested_launches},
         "dense_vs_sort_ms": vs_sort, "debug_checks_ms": debug_ms,
-        "csv_cli": csv_cli, "mesh": mesh, "pair_sort": pair_sort}
+        "csv_cli": csv_cli, "mesh": mesh, "pair_sort": pair_sort,
+        "join_runs": join_count}
     # Each row's launches on every rank of phase 10 (4 gloo ranks): over
     # all its queries for a kernel's main row, in the query of the row's
     # shape for D (the star join, Q3); C at span 1 and 16384 x 3 runs in no

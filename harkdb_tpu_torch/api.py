@@ -34,7 +34,8 @@ from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.utils.metrics import (
-    QueryMetrics, StageTimer, host_read, inner_plans_run, sorts_counted, span,
+    QueryMetrics, StageTimer, host_read, inner_plans_run, joins_counted,
+    sorts_counted, span,
 )
 
 #: Plans a Context keeps, the least recently used dropped first: a bound on
@@ -164,6 +165,7 @@ class Context:
         m.plan_ms = t.ms
         m.distributed = self.distributed
         inner0, sorts0 = inner_plans_run(), sorts_counted()
+        joins0 = joins_counted()
         t0 = time.perf_counter()
         if self.distributed:
             # No retry: one rank retrying alone would enter collectives
@@ -182,6 +184,8 @@ class Context:
         m.inner_plans_run = inner_plans_run() - inner0
         m.sort_rows, m.sort_row_bits = (
             a - b for a, b in zip(sorts_counted(), sorts0))
+        m.join_rows, m.join_fused_rows = (
+            a - b for a, b in zip(joins_counted(), joins0))
         self.last_metrics = m
         self._last_plan = plan          # sql_df reads output_dicts from here
         return out, m, t0

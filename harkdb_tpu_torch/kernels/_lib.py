@@ -62,6 +62,15 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _I64,
          ctypes.POINTER(ctypes.c_int), _P],
     ),
+    "harkdb_join_runs_scratch_words": (_I64, [_I64]),
+    "harkdb_join_words": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, _P, _P, _P],
+    ),
+    "harkdb_join_runs": (
+        ctypes.c_int,
+        [_P, ctypes.c_int, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,12 +13,14 @@ The algorithm is the JAX package's, run on torch tensors:
      concatenated, rights before lefts, and sorted ONCE by the key tuple
      with a stable sort (``ops.sort.lexsort_permutation``), so rights
      precede lefts within every key run. Per sorted-left row, the match
-     count is a cumsum difference and the first match ``lo`` a cummax-filled
-     run base. Only the tagged original row index rides the sort, as the
-     radix sort's int32 value where the keys are integers packing into one
-     order word (whose runs are then the key runs); the per-side splits
-     are stable compactions (kernel A on a card) of that index and the run
-     arithmetic. The carried columns do not move here.
+     count is the rights of its run and the first match ``lo`` the rights
+     before its run. Only the tagged original row index rides the sort, as
+     the radix sort's int32 value where the keys are integers packing into
+     one order word (whose runs are then the key runs): there the words,
+     the run arithmetic and the per-side splits are
+     ``kernels.join_runs``' two kernels on a card. Other keys take a
+     cumsum, a running max (kernel B) and stable compactions (kernel A).
+     The carried columns do not move here.
      Every join total comes out of this one pass; the planner reads the one
      it needs back to size the output (count-then-materialize).
   2. **Materialization** (:func:`join_batches` / :func:`join_indices`):
@@ -41,18 +43,18 @@ import torch
 
 from harkdb_tpu_torch.columnar.batch import ColumnBatch
 from harkdb_tpu_torch.kernels.expand import expand_fills
+from harkdb_tpu_torch.kernels.join_runs import (
+    ORIG_MASK, join_runs, join_tags, join_words, join_words_supported,
+)
+from harkdb_tpu_torch.kernels.radix_sort import sort_pairs
 from harkdb_tpu_torch.ops.sort import (
-    _pad_to_max, lexsort_permutation, one_integer_word,
+    _pad_to_max, lexsort_permutation, one_integer_word, order_words,
 )
 from harkdb_tpu_torch.prims.compaction import compact_arrays
 from harkdb_tpu_torch.prims.scan import running_max, running_min
-from harkdb_tpu_torch.utils.metrics import span
+from harkdb_tpu_torch.utils.metrics import count_join, span
 
 Tensor = torch.Tensor
-
-_LEFT_BIT = 1 << 30
-_PAD_BIT = -(1 << 31)               # bit 31 as int32
-_ORIG_MASK = (1 << 30) - 1
 
 
 class JoinRanges(NamedTuple):
@@ -105,13 +107,43 @@ def _i32(v: int, device) -> Tensor:
     return torch.full((), v, dtype=torch.int32, device=device)
 
 
+def _padded_keys(l_keys, n_l, r_keys, n_r, l_null, r_null) -> list:
+    """Each key over rights then lefts, pads as the dtype max so they
+    cluster at the back (rights before lefts, so the stable sort orders
+    rights before lefts within every key run), and the NULL codes after the
+    keys where either side has NULL flags."""
+    keys = [
+        torch.cat([_pad_to_max(rk, n_r), _pad_to_max(lk, n_l)])
+        for lk, rk in zip(l_keys, r_keys)
+    ]
+    if l_null is not None or r_null is not None:
+        # uint8 codes order as the JAX package's int32 ones and pack into
+        # the key's sort word (8 bits instead of 32).
+        dev = keys[0].device
+        nl, nr = l_keys[0].shape[0], r_keys[0].shape[0]
+        lnc = (l_null.to(torch.uint8) * 2 if l_null is not None
+               else torch.zeros(nl, dtype=torch.uint8, device=dev))
+        rnc = (r_null.to(torch.uint8) if r_null is not None
+               else torch.zeros(nr, dtype=torch.uint8, device=dev))
+        keys.append(torch.cat([rnc, lnc]))
+    return keys
+
+
 def compute_join_ranges(
     l_key, n_l: Tensor, r_key, n_r: Tensor,
     l_cols: Sequence[Tensor] = (), r_cols: Sequence[Tensor] = (),
     l_null: Optional[Tensor] = None, r_null: Optional[Tensor] = None,
     need_full: bool = False,
 ) -> JoinRanges:
-    """One concat sort + two compactions → everything a join needs.
+    """One concat sort and the arithmetic of its key runs → everything a
+    join needs.
+
+    Integer keys that pack into one order word, without the FULL OUTER
+    fields, take ``kernels.join_runs``: on a card one kernel before the
+    sort (one int32 key a side) and one after it, on the CPU their plain
+    versions. Any other join (float keys, several words, ``need_full``)
+    takes the composition below: run starts per operand, kernel B's running
+    max and kernel A's compactions on a card.
 
     ``l_cols``/``r_cols`` are the columns the join will carry. They are
     kept by reference, in original row order: neither the sort nor the
@@ -136,45 +168,54 @@ def compute_join_ranges(
         raise ValueError("row capacity >= 2^30")
     dev = l_keys[0].device
     n = nl + nr
-    # Pads → dtype max so they cluster at the back. Rights are concatenated
-    # BEFORE lefts, so the stable sort orders rights before lefts within
-    # every key run; side and pad flags travel as 2 tag bits on the carried
-    # row index (capacities are < 2^30).
-    l_idx = torch.arange(nl, dtype=torch.int32, device=dev)
-    r_idx = torch.arange(nr, dtype=torch.int32, device=dev)
-    keys = [
-        torch.cat([_pad_to_max(rk, n_r), _pad_to_max(lk, n_l)])
-        for lk, rk in zip(l_keys, r_keys)
-    ]
-    if l_null is not None or r_null is not None:
-        # uint8 codes order as the JAX package's int32 ones and pack into
-        # the key's sort word (8 bits instead of 32).
-        lnc = (l_null.to(torch.uint8) * 2 if l_null is not None
-               else torch.zeros(nl, dtype=torch.uint8, device=dev))
-        rnc = (r_null.to(torch.uint8) if r_null is not None
-               else torch.zeros(nr, dtype=torch.uint8, device=dev))
-        keys.append(torch.cat([rnc, lnc]))
-    zero = _i32(0, dev)
-    pad_bit = _i32(_PAD_BIT, dev)
-    l_tag = (l_idx | _LEFT_BIT) | torch.where(l_idx >= n_l, pad_bit, zero)
-    r_tag = r_idx | torch.where(r_idx >= n_r, pad_bit, zero)
-    orig_tagged = torch.cat([r_tag, l_tag])
-
-    if one_integer_word(keys):
+    has_null = l_null is not None or r_null is not None
+    key_dtypes = [torch.promote_types(lk.dtype, rk.dtype)
+                  for lk, rk in zip(l_keys, r_keys)]
+    one_word = one_integer_word(key_dtypes + [torch.uint8] * has_null)
+    if one_word and not need_full:
         # The packing is a bijection: equal words are equal key tuples, so
-        # the run starts read off the sorted word, and the tag rides the
-        # sort as its value.
-        sword, stag = lexsort_permutation(keys, orig_tagged)
+        # the runs read off the sorted word and the tag rides the sort as
+        # its value. kernels/join_runs does the rest: the words kernel
+        # where the keys are one int32 a side, then the sort, then the runs
+        # kernel (their plain versions on the CPU).
+        if join_words_supported(l_keys, r_keys):
+            word, bits, tag = join_words(l_keys[0], n_l, r_keys[0], n_r,
+                                         l_null, r_null)
+        else:
+            (word, bits), = order_words(
+                _padded_keys(l_keys, n_l, r_keys, n_r, l_null, r_null))
+            tag = join_tags(nl, nr, n_l, n_r, dev)
+        with span("hark.join.count.sort"):
+            sword, stag = sort_pairs(word, bits, tag)
+        runs = join_runs(sword, stag, nl, n_l)
+        count_join(n, fused=dev.type == "cuda")
+        return JoinRanges(
+            runs.l_orig, runs.counts, runs.lo, tuple(l_cols), runs.r_orig,
+            tuple(r_cols), runs.n_lefts, runs.total, runs.total_left,
+            total_approx=runs.total_approx,
+        )
+
+    count_join(n, fused=False)
+    keys = _padded_keys(l_keys, n_l, r_keys, n_r, l_null, r_null)
+    orig_tagged = join_tags(nl, nr, n_l, n_r, dev)
+    with span("hark.join.count.sort"):
+        if one_word:
+            sword, stag = lexsort_permutation(keys, orig_tagged)
+        else:
+            perm = lexsort_permutation(keys)
+    if one_word:
         skeys = [sword]
     else:
         # Float keys (each NaN a run of its own) or several words: the run
         # starts per operand, gathered through the permutation.
-        perm = lexsort_permutation(keys)
         skeys = [k[perm] for k in keys]
         stag = orig_tagged[perm]
+    zero = _i32(0, dev)
+    l_idx = torch.arange(nl, dtype=torch.int32, device=dev)
+    r_idx = torch.arange(nr, dtype=torch.int32, device=dev)
     # side code from the tag bits: 0 = live right, 1 = live left, else pad.
     side_code = (stag >> 30) & 3
-    sorig = stag & _ORIG_MASK
+    sorig = stag & ORIG_MASK
 
     pos = torch.arange(n, dtype=torch.int32, device=dev)
     is_right = (side_code == 0).to(torch.int32)

@@ -171,11 +171,14 @@ def order_words(keys: Sequence[torch.Tensor]
     return words
 
 
-def one_integer_word(keys: Sequence[torch.Tensor]) -> bool:
-    """Whether the keys are integers (bool included) that share one order
-    word: then the sorted word's runs are the key tuple's runs."""
-    return (len(_word_groups(keys)) == 1
-            and not any(k.dtype.is_floating_point for k in keys))
+def one_integer_word(keys: Sequence) -> bool:
+    """Whether the keys (tensors, or their dtypes) are integers (bool
+    included) that share one order word: then the sorted word's runs are
+    the key tuple's runs."""
+    dtypes = [k if isinstance(k, torch.dtype) else k.dtype for k in keys]
+    bits = [_key_bits(d) for d in dtypes]
+    return ((len(bits) == 1 or sum(bits) <= _WORD_BITS)
+            and not any(d.is_floating_point for d in dtypes))
 
 
 def lexsort_permutation(keys: Sequence[torch.Tensor],

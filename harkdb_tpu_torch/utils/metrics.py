@@ -15,6 +15,8 @@ observability story is one stray debug print (``parse.py:57``).
   or a subquery's): counts it and opens ``hark.subquery``.
 * :func:`count_sort`: the rows and bits of every order word sorted
   (``kernels.radix_sort.sort_pairs``).
+* :func:`count_join`: the rows of every join's count phase, and those
+  that ran in the hand-written kernels (``kernels.join_runs``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ _INNER_PLANS_RUN = 0
 #: differences around a query.
 _SORT_ROWS = 0
 _SORT_ROW_BITS = 0
+
+#: Rows of every join's count phase in this process, and those whose count
+#: phase ran in the hand-written kernels (``count_join``).
+_JOIN_ROWS = 0
+_JOIN_FUSED_ROWS = 0
 
 
 def span(name: str):
@@ -92,6 +99,21 @@ def sorts_counted() -> Tuple[int, int]:
     return _SORT_ROWS, _SORT_ROW_BITS
 
 
+def count_join(rows: int, fused: bool) -> None:
+    """Count one join's count phase over ``rows`` rows (both sides'
+    capacities), ``fused`` where it ran in the hand-written kernels (host
+    ints: no sync)."""
+    global _JOIN_ROWS, _JOIN_FUSED_ROWS
+    _JOIN_ROWS += rows
+    _JOIN_FUSED_ROWS += rows if fused else 0
+
+
+def joins_counted() -> Tuple[int, int]:
+    """``(rows, fused rows)`` of the joins' count phases in this process so
+    far."""
+    return _JOIN_ROWS, _JOIN_FUSED_ROWS
+
+
 @dataclasses.dataclass
 class QueryMetrics:
     sql: str = ""
@@ -118,6 +140,10 @@ class QueryMetrics:
     # covered.
     sort_rows: int = 0
     sort_row_bits: int = 0
+    # Rows of the query's joins' count phases (both sides' capacities), and
+    # those that ran in the hand-written kernels (``kernels.join_runs``).
+    join_rows: int = 0
+    join_fused_rows: int = 0
     # ``torch.cuda.memory_allocated`` as the query returns, less the bytes
     # of the Context's resident tables: what the query left on the card
     # (for ``sql_batch``, the returned result). An allocator statistic read

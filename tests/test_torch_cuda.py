@@ -15,8 +15,10 @@ runs the public primitives (``prims``) against their CPU plain results
 and the top-k LIMIT path against the CPU port; checks that the entry
 points with no device argument put their data on the card, and runs
 chip_smoke's phase 12 (the public ``ops`` and ``kernels`` entry points) at
-2^16 rows; and runs 200 queries of the benchmark's TPC-H power mix at 1%
-of SF 10, holding the card's memory flat.
+2^16 rows; runs 200 queries of the benchmark's TPC-H power mix at 1%
+of SF 10, holding the card's memory flat; and holds the join's count-phase
+kernels (words and runs) to their plain versions bit for bit, from lengths
+around their tiles to a 65536² CROSS JOIN and 120M + 2,557 rows.
 Whether a card is present
 is decided in the fixture, so machines without one skip these tests with
 the reason. Run on a card with:
@@ -386,13 +388,17 @@ def test_debug_checks_on_card(cuda):
 
 
 def _counters():
-    from harkdb_tpu_torch.kernels import compact, expand, matmul_agg, segscan
+    from harkdb_tpu_torch.kernels import (
+        compact, expand, join_runs, matmul_agg, segscan,
+    )
 
     return {"flat_compact": (compact, "LAUNCHES"),
             "flat_segscan": (segscan, "LAUNCHES"),
             "flat_segscan_one_segment": (segscan, "ONE_SEGMENT_LAUNCHES"),
             "onehot_groupby_sums": (matmul_agg, "LAUNCHES"),
-            "expand_fills": (expand, "LAUNCHES")}
+            "expand_fills": (expand, "LAUNCHES"),
+            "join_words": (join_runs, "WORDS_LAUNCHES"),
+            "join_runs": (join_runs, "RUNS_LAUNCHES")}
 
 
 def test_prims_on_card_match_cpu(cuda):
@@ -589,3 +595,75 @@ def test_sort_counters_on_card_give_32_bits_a_join_row(cuda):
     m = ctx.last_metrics
     assert m.sort_rows >= 100_000 + 512
     assert m.sort_row_bits == 32 * m.sort_rows
+
+
+def _join_runs_edges():
+    import chip_smoke
+
+    return chip_smoke.JOIN_RUNS_EDGES
+
+
+@pytest.mark.parametrize("case", range(11), ids=[
+    "0+1", "1+0", "2047", "2049", "4097+0", "nulls", "no_live_rows_nulls",
+    "runs_over_many_tiles", "half_live_nulls", "cross_join_65536sq",
+    "120M+2557"])
+def test_join_kernels_on_card_equal_plain_versions(cuda, case):
+    """The join's words and runs kernels (``kernels/join_runs.py``) against
+    their plain versions on the CPU, bit for bit (``total_approx`` within
+    1e-5 relative): lengths around the 2048-row tiles, an empty side, runs
+    over many tiles, NULL codes, the whole array one run (the 65536² CROSS
+    JOIN: ``total`` and ``total_left`` wrap to 0, ``total_approx`` is
+    2^32), and 120M + 2,557 rows."""
+    import chip_smoke
+
+    edges = _join_runs_edges()
+    assert len(edges) == 11
+    nl, nr, n_l, n_r, span, nulls = edges[case]
+    totals = chip_smoke.check_join_runs(torch, cuda, nl, nr, n_l, n_r, span,
+                                        nulls, seed=1400 + case)
+    if span == 1:
+        assert totals["total"] == totals["total_left"] == 0
+        assert totals["total_approx"] == pytest.approx(2.0 ** 32, rel=1e-5)
+
+
+def test_join_kernels_never_take_plain_version(cuda, monkeypatch):
+    """On CUDA tensors the join's count phase launches the two kernels
+    once each and runs neither plain version, with and without NULL codes;
+    a two-key join keeps the composition (kernels A and B)."""
+    from harkdb_tpu_torch.kernels import join_runs as K
+    from harkdb_tpu_torch.ops import join as J
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(K, "join_words_reference", refuse)
+    monkeypatch.setattr(K, "join_runs_reference", refuse)
+    k = torch.arange(5000, dtype=torch.int32, device=cuda) % 97
+    nv = torch.full((), 4900, dtype=torch.int32, device=cuda)
+    before = (K.WORDS_LAUNCHES, K.RUNS_LAUNCHES)
+    J.compute_join_ranges(k, nv, k[:300], nv)
+    J.compute_join_ranges(k, nv, k[:300], nv, l_null=k > 90)
+    J.compute_join_ranges([k, k], nv, [k[:300], k[:300]], nv)
+    assert (K.WORDS_LAUNCHES, K.RUNS_LAUNCHES) == (before[0] + 2,
+                                                   before[1] + 2)
+
+
+def test_join_counters_on_card_count_fused_rows(cuda):
+    """A join on one int32 key runs its count phase in the kernels: the
+    query's ``join_fused_rows`` equals its ``join_rows``; a join on two keys
+    counts its rows but none fused."""
+    import harkdb_tpu_torch as H
+
+    rng = np.random.default_rng(9)
+    ctx = H.Context(device=cuda)
+    ctx.create_table("f", {"k": rng.integers(0, 500, 100_000).astype(np.int32),
+                           "v": rng.integers(0, 9, 100_000).astype(np.int32)})
+    ctx.create_table("d", {"j": np.arange(512, dtype=np.int32),
+                           "g": rng.integers(0, 9, 512).astype(np.int32)})
+    ctx.sql("select f.v, d.g from f join d on f.k = d.j")
+    m = ctx.last_metrics
+    assert m.join_rows >= 100_000 + 512
+    assert m.join_fused_rows == m.join_rows
+    ctx.sql("select f.v, d.g from f join d on f.k = d.j and f.v = d.g")
+    m = ctx.last_metrics
+    assert m.join_rows >= 100_000 + 512 and m.join_fused_rows == 0

@@ -196,8 +196,9 @@ def test_explain_shows_offset():
 
 def test_metrics_match_jax():
     """TestMetrics: rows out, timings and the plan-cache flag; the port's
-    record has the JAX package's fields and four of its own (the inner
-    plans a query ran, the rows and row bits it sorted, the bytes it left
+    record has the JAX package's fields and six of its own (the inner
+    plans a query ran, the rows and row bits it sorted, the rows of its
+    joins' count phases and those the kernels ran, the bytes it left
     on the card)."""
     j, p = make_pair(_join_ctx())
     for c in (j, p):
@@ -210,7 +211,8 @@ def test_metrics_match_jax():
         assert c.last_metrics.cached_plan
     assert sorted(json.loads(p.last_metrics.to_json())) == sorted(
         [*json.loads(j.last_metrics.to_json()), "inner_plans_run",
-         "sort_rows", "sort_row_bits", "held_bytes"])
+         "sort_rows", "sort_row_bits", "join_rows", "join_fused_rows",
+         "held_bytes"])
 
 
 def test_save_load_roundtrip(tmp_path):

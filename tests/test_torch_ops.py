@@ -733,16 +733,24 @@ class TestLateMaterialization:
                                                need_full):
         """compute_join_ranges compacts 3 columns left (row, count, first
         match) and 1 right (+ the matched flag under need_full), however
-        many columns the join carries; the ranges keep the caller's
-        columns themselves."""
+        many columns the join carries: in the runs' plain version
+        (``kernels/join_runs``), or in the composition's compactions under
+        need_full; the ranges keep the caller's columns themselves."""
+        from harkdb_tpu_torch.kernels import join_runs
+
         widths = []
-        real = TJ.compact_arrays
+        real, real_split = TJ.compact_arrays, join_runs.flat_compact_reference
 
         def spy(arrays, mask, n_valid):
             widths.append(len(arrays))
             return real(arrays, mask, n_valid)
 
+        def spy_split(cols, mask, n_valid):
+            widths.append(len(cols))
+            return real_split(cols, mask, n_valid)
+
         monkeypatch.setattr(TJ, "compact_arrays", spy)
+        monkeypatch.setattr(join_runs, "flat_compact_reference", spy_split)
         rng = np.random.default_rng(n_carried)
         lk = torch.from_numpy(rng.integers(0, 50, 400).astype(np.int32))
         rk = torch.from_numpy(rng.integers(0, 50, 100).astype(np.int32))

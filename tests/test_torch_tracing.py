@@ -3,8 +3,9 @@ on the CPU, with one case on the card (marker ``gpu``).
 
 * Under ``torch.profiler`` a query records ``hark.*`` ranges nested as
   README's span table says: ``hark.filter`` per pushed-down WHERE,
-  ``hark.join`` per join step with one ``hark.join.count`` and one
-  ``hark.join.fill`` (holding one ``hark.join.fill.gather``),
+  ``hark.join`` per join step with one ``hark.join.count`` (holding one
+  ``hark.join.count.sort``) and one ``hark.join.fill`` (holding one
+  ``hark.join.fill.gather``),
   ``hark.groupby``, ``hark.tail``, ``hark.result``.
 * Every blocking host read of a query lies inside a ``hark.sync.<site>``
   range: each ``aten::item`` the profiler records, and, since ``tolist``
@@ -116,6 +117,8 @@ def test_spans_nest_as_the_span_table_says(ctx):
         assert [p for n, p in hark if n == child] == ["hark.join"] * 2
     assert ([p for n, p in hark if n == "hark.join.fill.gather"]
             == ["hark.join.fill"] * 2)
+    assert ([p for n, p in hark if n == "hark.join.count.sort"]
+            == ["hark.join.count"] * 2)
     for site in ("hark.sync.join_guard", "hark.sync.join_total"):
         assert [p for n, p in hark if n == site] == ["hark.join.count"] * 2
     # f's and b's pushed-down WHERE, each under no other operator
