@@ -35,7 +35,7 @@ from harkdb_tpu_torch.columnar.device import resolve_device
 from harkdb_tpu_torch.columnar.table import Table
 from harkdb_tpu_torch.utils.metrics import (
     QueryMetrics, StageTimer, host_read, inner_plans_run, joins_counted,
-    sorts_counted, span,
+    rows_counted, sorts_counted, span,
 )
 
 #: Plans a Context keeps, the least recently used dropped first: a bound on
@@ -165,7 +165,7 @@ class Context:
         m.plan_ms = t.ms
         m.distributed = self.distributed
         inner0, sorts0 = inner_plans_run(), sorts_counted()
-        joins0 = joins_counted()
+        joins0, rows0 = joins_counted(), rows_counted()
         t0 = time.perf_counter()
         if self.distributed:
             # No retry: one rank retrying alone would enter collectives
@@ -186,6 +186,8 @@ class Context:
             a - b for a, b in zip(sorts_counted(), sorts0))
         m.join_rows, m.join_fused_rows = (
             a - b for a, b in zip(joins_counted(), joins0))
+        m.window_rows, m.setop_rows = (
+            a - b for a, b in zip(rows_counted(), rows0))
         self.last_metrics = m
         self._last_plan = plan          # sql_df reads output_dicts from here
         return out, m, t0

@@ -38,7 +38,7 @@ from harkdb_tpu_torch.plan.planner import QueryPlan
 from harkdb_tpu_torch.prims.compaction import compact_batch
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 from harkdb_tpu_torch.sql.ast_nodes import Col, Lit
-from harkdb_tpu_torch.utils.metrics import host_read
+from harkdb_tpu_torch.utils.metrics import count_setop, host_read, span
 
 
 #: explicit mantissa bits per float type (numpy's ``finfo.nmant``)
@@ -128,6 +128,7 @@ class UnionPlan:
         semantics treat NULLs as equal, whatever expression produced them."""
         with host_read("union"):
             n = int(batch.n_valid)
+        count_setop(n)
         cols, flags = [], []
         outs = [nm for nm in batch.names if not nm.startswith("#nullflag")]
         for j, internal in enumerate(outs):
@@ -216,66 +217,77 @@ class UnionPlan:
         """Run every arm (through ``execute(plan)`` when given: the mesh
         runner delivers each arm whole to every rank, so the combine reads
         the same values, and takes the same branches, on every rank) and
-        combine them."""
-        cfg = self.config
-        n_out = len(self.output_names)
+        combine them. The combination runs inside ``hark.setop``, the
+        arms' plans outside it."""
         acc: List[torch.Tensor] = []
-        acc_flags: List[object] = [None] * n_out
+        acc_flags: List[object] = [None] * len(self.output_names)
         for ai, p in enumerate(self.arms):
-            cols, flags = self._arm_cols(
-                ai, p.execute(tables) if execute is None else execute(p))
-            if ai == 0:
-                acc, acc_flags = cols, flags
-                continue
-            merged = []
-            for a, c in zip(acc, cols):
-                if a.dtype.is_floating_point != c.dtype.is_floating_point:
-                    tgt = self.float_target()
-                    # Integers beyond the float target's exact-integer span
-                    # would silently lose precision in the cast — corrupting
-                    # values AND making distinct-dedupe merge unequal rows.
-                    # The tail is eager, so a range readback is cheap.
-                    for x in (a, c):
-                        if not x.dtype.is_floating_point and x.shape[0]:
-                            with host_read("union"):
-                                lo, hi = int(x.min()), int(x.max())
-                            self.check_span(max(abs(lo), abs(hi)))
-                    a, c = a.to(tgt), c.to(tgt)
-                merged.append(torch.cat([a, c]))
-            # NULL indicators concatenate alongside (missing side = all-1)
-            na, nc = acc[0].shape[0], cols[0].shape[0]
-            dev = acc[0].device
-            mflags = []
-            for fa, fc in zip(acc_flags, flags):
-                if fa is None and fc is None:
-                    mflags.append(None)
-                    continue
-                fa = fa if fa is not None else torch.ones(
-                    na, dtype=torch.int32, device=dev)
-                fc = fc if fc is not None else torch.ones(
-                    nc, dtype=torch.int32, device=dev)
-                mflags.append(torch.cat([fa, fc]))
-            acc, acc_flags = merged, mflags
-            op = self.ops[ai - 1]
-            if op != "union all":
-                nf_idx = [j for j, f in enumerate(acc_flags)
-                          if f is not None]
-                packed = acc + [acc_flags[j] for j in nf_idx]
-                if op == "union":
-                    dd = self._dedupe(packed, len(nf_idx))
-                else:                       # intersect / except
-                    tag = torch.cat([
-                        torch.zeros(na, dtype=torch.int32, device=dev),
-                        torch.ones(nc, dtype=torch.int32, device=dev),
-                    ])
-                    dd = self._set_combine(packed, tag, op)
-                acc = dd[:n_out]
-                acc_flags = list(acc_flags)
-                for k, j in enumerate(nf_idx):
-                    acc_flags[j] = dd[n_out + k]
+            batch = p.execute(tables) if execute is None else execute(p)
+            with span("hark.setop"):
+                cols, flags = self._arm_cols(ai, batch)
+                if ai == 0:
+                    acc, acc_flags = cols, flags
+                else:
+                    acc, acc_flags = self._combine(acc, acc_flags, cols,
+                                                   flags, self.ops[ai - 1])
+        with span("hark.setop"):
+            return self._finish(acc, acc_flags)
 
+    def _combine(self, acc, acc_flags, cols, flags, op: str):
+        """The accumulated arms' rows and NULL indicators set-combined with
+        the next arm's by ``op``."""
+        n_out = len(self.output_names)
+        merged = []
+        for a, c in zip(acc, cols):
+            if a.dtype.is_floating_point != c.dtype.is_floating_point:
+                tgt = self.float_target()
+                # Integers beyond the float target's exact-integer span
+                # would silently lose precision in the cast — corrupting
+                # values AND making distinct-dedupe merge unequal rows.
+                # The tail is eager, so a range readback is cheap.
+                for x in (a, c):
+                    if not x.dtype.is_floating_point and x.shape[0]:
+                        with host_read("union"):
+                            lo, hi = int(x.min()), int(x.max())
+                        self.check_span(max(abs(lo), abs(hi)))
+                a, c = a.to(tgt), c.to(tgt)
+            merged.append(torch.cat([a, c]))
+        # NULL indicators concatenate alongside (missing side = all-1)
+        na, nc = acc[0].shape[0], cols[0].shape[0]
+        dev = acc[0].device
+        mflags = []
+        for fa, fc in zip(acc_flags, flags):
+            if fa is None and fc is None:
+                mflags.append(None)
+                continue
+            fa = fa if fa is not None else torch.ones(
+                na, dtype=torch.int32, device=dev)
+            fc = fc if fc is not None else torch.ones(
+                nc, dtype=torch.int32, device=dev)
+            mflags.append(torch.cat([fa, fc]))
+        acc, acc_flags = merged, mflags
+        if op != "union all":
+            nf_idx = [j for j, f in enumerate(acc_flags) if f is not None]
+            packed = acc + [acc_flags[j] for j in nf_idx]
+            if op == "union":
+                dd = self._dedupe(packed, len(nf_idx))
+            else:                       # intersect / except
+                tag = torch.cat([
+                    torch.zeros(na, dtype=torch.int32, device=dev),
+                    torch.ones(nc, dtype=torch.int32, device=dev),
+                ])
+                dd = self._set_combine(packed, tag, op)
+            acc = dd[:n_out]
+            acc_flags = list(acc_flags)
+            for k, j in enumerate(nf_idx):
+                acc_flags[j] = dd[n_out + k]
+        return acc, acc_flags
+
+    def _finish(self, acc, acc_flags) -> ColumnBatch:
+        """The combined rows as a batch, in the trailing ORDER BY's order,
+        OFFSET and LIMIT applied."""
         total = int(acc[0].shape[0]) if acc else 0
-        cap = align_capacity(total, cfg.row_align)
+        cap = align_capacity(total, self.config.row_align)
         dev = acc[0].device
 
         def padded(c, fill=0):

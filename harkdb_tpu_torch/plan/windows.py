@@ -41,6 +41,7 @@ from harkdb_tpu_torch.plan.errors import PlanError
 from harkdb_tpu_torch.plan.expr import eval_expr
 from harkdb_tpu_torch.prims.scan import running_max, running_min
 from harkdb_tpu_torch.sql.ast_nodes import Col
+from harkdb_tpu_torch.utils.metrics import window
 
 _SCAN = {"sum": torch.add, "prod": torch.mul,
          "max": torch.maximum, "min": torch.minimum}
@@ -107,7 +108,8 @@ def compute_windows(plan, batch: ColumnBatch,
                     allow_skip_restore: bool = False):
     """Compute window outputs for ``plan.window_specs`` (or the given
     subset) over ``batch``; returns ``(batch + one column per spec,
-    presorted)``.
+    presorted)``. Runs inside the span ``hark.window``, which counts the
+    batch's rows.
 
     ``allow_skip_restore``: when the plan detected that the query's final
     ORDER BY exactly matches one shape's (PARTITION BY, ORDER BY) sort
@@ -116,6 +118,11 @@ def compute_windows(plan, batch: ColumnBatch,
     caller's ORDER BY sort are skipped (``presorted=True``). Distributed
     callers pass False: the executor's distributed sort restores the
     order of each rank's rows."""
+    with window(batch.capacity):
+        return _compute_windows(plan, batch, specs, allow_skip_restore)
+
+
+def _compute_windows(plan, batch: ColumnBatch, specs, allow_skip_restore):
     cap = batch.capacity
     dev = batch.device
     cols = dict(batch.columns)

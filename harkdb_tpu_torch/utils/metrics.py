@@ -17,6 +17,10 @@ observability story is one stray debug print (``parse.py:57``).
   (``kernels.radix_sort.sort_pairs``).
 * :func:`count_join`: the rows of every join's count phase, and those
   that ran in the hand-written kernels (``kernels.join_runs``).
+* :func:`window`: around each window computation (``plan/windows.py``):
+  counts its rows and opens ``hark.window``; :func:`count_setop` counts
+  the rows of a set operation's arms (``plan/union_plan.py``, which opens
+  ``hark.setop`` around their combination).
 """
 
 from __future__ import annotations
@@ -49,6 +53,11 @@ _SORT_ROW_BITS = 0
 #: phase ran in the hand-written kernels (``count_join``).
 _JOIN_ROWS = 0
 _JOIN_FUSED_ROWS = 0
+
+#: Rows into window computations and into set operations in this process
+#: (``window``, ``count_setop``).
+_WINDOW_ROWS = 0
+_SETOP_ROWS = 0
 
 
 def span(name: str):
@@ -114,6 +123,27 @@ def joins_counted() -> Tuple[int, int]:
     return _JOIN_ROWS, _JOIN_FUSED_ROWS
 
 
+def window(rows: int):
+    """The span ``hark.window`` around one window computation (its sorts
+    and scans) over a batch of ``rows`` rows, padding included (a host
+    int: no sync); the rows are counted."""
+    global _WINDOW_ROWS
+    _WINDOW_ROWS += rows
+    return span("hark.window")
+
+
+def count_setop(rows: int) -> None:
+    """Count one arm's ``rows`` live rows into a set operation (read on
+    the host where the combination reads them anyway)."""
+    global _SETOP_ROWS
+    _SETOP_ROWS += rows
+
+
+def rows_counted() -> Tuple[int, int]:
+    """``(window rows, set-operation rows)`` in this process so far."""
+    return _WINDOW_ROWS, _SETOP_ROWS
+
+
 @dataclasses.dataclass
 class QueryMetrics:
     sql: str = ""
@@ -144,6 +174,10 @@ class QueryMetrics:
     # those that ran in the hand-written kernels (``kernels.join_runs``).
     join_rows: int = 0
     join_fused_rows: int = 0
+    # Rows into the query's window computations (each batch's rows, padding
+    # included) and into its set operations (each arm's live rows).
+    window_rows: int = 0
+    setop_rows: int = 0
     # ``torch.cuda.memory_allocated`` as the query returns, less the bytes
     # of the Context's resident tables: what the query left on the card
     # (for ``sql_batch``, the returned result). An allocator statistic read

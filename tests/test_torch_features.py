@@ -196,10 +196,10 @@ def test_explain_shows_offset():
 
 def test_metrics_match_jax():
     """TestMetrics: rows out, timings and the plan-cache flag; the port's
-    record has the JAX package's fields and six of its own (the inner
+    record has the JAX package's fields and eight of its own (the inner
     plans a query ran, the rows and row bits it sorted, the rows of its
-    joins' count phases and those the kernels ran, the bytes it left
-    on the card)."""
+    joins' count phases and those the kernels ran, the rows into its
+    windows and set operations, the bytes it left on the card)."""
     j, p = make_pair(_join_ctx())
     for c in (j, p):
         out = c.sql("select k from l where k > 1")
@@ -212,7 +212,7 @@ def test_metrics_match_jax():
     assert sorted(json.loads(p.last_metrics.to_json())) == sorted(
         [*json.loads(j.last_metrics.to_json()), "inner_plans_run",
          "sort_rows", "sort_row_bits", "join_rows", "join_fused_rows",
-         "held_bytes"])
+         "window_rows", "setop_rows", "held_bytes"])
 
 
 def test_save_load_roundtrip(tmp_path):

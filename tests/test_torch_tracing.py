@@ -17,6 +17,11 @@ on the CPU, with one case on the card (marker ``gpu``).
 * ``QueryMetrics``: ``sql_batch`` reads nothing back for it (``rows_out``
   -1), ``sql`` / ``sql_df`` count the returned rows, the JSON line is
   built only when its level is logged.
+* ``hark.window`` opens around each window computation, inside
+  ``hark.tail``; ``hark.setop`` around the combination of a set
+  operation's arms, whose own operators run outside it; neither opens
+  without a profiler. ``window_rows`` and ``setop_rows`` count the rows
+  into them.
 
 Run the ``gpu`` case on a card with:
 
@@ -215,6 +220,55 @@ def test_no_record_function_without_a_profiler(ctx, monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         with pytest.raises(AssertionError, match="no profiler"):
             metrics.span("hark.a")
+
+
+WINDOW = ("select g, sum(v) as s, sum(sum(v)) over () "
+          "as t, rank() over (order by sum(v)) as r from f join a on "
+          "k = ak group by g order by g")
+SETOP = ("select k from f where v > 500 intersect select ak from a "
+         "except select bk from b")
+
+
+def test_window_and_setop_spans_open_where_the_work_runs(ctx):
+    _out, events = profiled(ctx, WINDOW)
+    win = [chain for e, chain in events if e.name == "hark.window"]
+    assert win == [["hark.tail"]]
+    _out, events = profiled(ctx, SETOP)
+    setops = [chain for e, chain in events if e.name == "hark.setop"]
+    assert len(setops) == 4 and all(c == [] for c in setops)
+    # the arms' own operators run outside it, the combination's reads in it
+    filters = [chain for e, chain in events if e.name == "hark.filter"]
+    assert filters and all("hark.setop" not in c for c in filters)
+    reads = [chain for e, chain in events if e.name == "hark.sync.union"]
+    assert len(reads) == 5 and all(c[:1] == ["hark.setop"] for c in reads)
+
+
+@pytest.mark.parametrize("sql", [WINDOW, SETOP])
+def test_window_and_setop_spans_cost_nothing_without_a_profiler(
+        ctx, monkeypatch, sql):
+    want = ctx.sql(sql)
+
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    np.testing.assert_array_equal(ctx.sql(sql), want)
+    assert metrics.window(0) is metrics.span("hark.a")
+
+
+def test_window_rows_and_setop_rows_count_the_rows(ctx):
+    out = ctx.sql(WINDOW)
+    m = ctx.last_metrics
+    # one window computation over the grouped batch: 7 groups, padded
+    assert out.shape[0] == 7 and 7 <= m.window_rows < 7 + 1024
+    assert m.setop_rows == 0
+    ctx.sql(SETOP)
+    m = ctx.last_metrics
+    n_f = int((ctx.sql("select count(*) from f where v > 500"))[0, 0])
+    assert m.setop_rows == n_f + 50 + 20 and m.window_rows == 0
+    ctx.sql(STAR)
+    assert ctx.last_metrics.window_rows == ctx.last_metrics.setop_rows == 0
 
 
 def test_stage_timer_records_its_interval_as_a_span():
